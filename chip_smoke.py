@@ -22,6 +22,8 @@ import subprocess
 import sys
 import time
 
+from typing import NamedTuple
+
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -39,6 +41,7 @@ PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 U32 = 2.0 ** -24  # float32 unit roundoff
 TIMING_REPS = 20
+TIMED_PASSES = 3  # full front-end passes timed after the first
 
 
 def log(msg):
@@ -118,6 +121,66 @@ def make_configs():
     return pre, odo
 
 
+class FrontEndInputs(NamedTuple):
+    traj: np.ndarray   # (FRAMES, 7) ground-truth poses
+    raw: object        # (FRAMES, RAW, 3) float32 scans on the card
+    rmask: object      # (FRAMES, RAW) bool
+    stamps: object     # (FRAMES,) float32 seconds
+    pre: object        # PrefilterConfig
+    odo: object        # ScanMatchingOdometryConfig
+
+
+class FrontEndRun(NamedTuple):
+    poses: object        # (n_frames, 7)
+    iterations: object   # (n_frames,) GN iterations
+    keyframes: object    # (n_frames,) bool
+    block_walls: list    # wall seconds of each block, sync to sync
+
+
+def front_end_inputs(torch, dev):
+    """bench.py's production world and front-end configs on the card."""
+    traj, raw, rmask = build_world()
+    pre, odo = make_configs()
+    return FrontEndInputs(
+        traj, torch.from_numpy(raw).to(dev), torch.from_numpy(rmask).to(dev),
+        torch.arange(FRAMES, dtype=torch.float32, device=dev) * 0.1, pre,
+        odo)
+
+
+def front_end(torch, inp, n_frames=FRAMES, split=None):
+    """Blocks of BLOCK frames through the port's prefilter and run_batch,
+    from a fresh carry, as bench.py:253-265 drives the JAX package. The
+    stream is synced at each block's end to time it; with `split` (a
+    dict), a sync between the two stages adds each stage's wall time."""
+    from mrg_slam_tpu_torch.models import odometry_fused as fused
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud
+    from mrg_slam_tpu_torch.ops.prefilter import prefilter
+
+    carry = fused.init_carry(FILTERED, device=inp.raw.device)
+    poses, iters, kfs, walls = [], [], [], []
+    torch.cuda.synchronize()
+    for s in range(0, n_frames, BLOCK):
+        t0 = time.perf_counter()
+        c = prefilter(PointCloud(inp.raw[s:s + BLOCK],
+                                 inp.rmask[s:s + BLOCK]), inp.pre)
+        if split is not None:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            split["prefilter"] = split.get("prefilter", 0) + t1 - t0
+        carry, outs = fused.run_batch(inp.odo, carry, c.points, c.mask,
+                                      inp.stamps[s:s + BLOCK])
+        torch.cuda.synchronize()
+        if split is not None:
+            split["odometry"] = (split.get("odometry", 0)
+                                 + time.perf_counter() - t1)
+        walls.append(time.perf_counter() - t0)
+        poses.append(outs.pose)
+        iters.append(outs.iterations)
+        kfs.append(outs.is_new_keyframe)
+    return FrontEndRun(torch.cat(poses), torch.cat(iters), torch.cat(kfs),
+                       walls)
+
+
 def uniform_input(torch, dev, n, rng):
     """±45 m uniform points with duplicates and a masked tail."""
     pts = rng.uniform(-45, 45, size=(n, 3)).astype(np.float32)
@@ -179,11 +242,16 @@ def check_moments(torch, sk, pts, r2, name):
         f"|cov| err {e_cov:.3g} (tol {tol_cov:.3g}), n<={n:.0f}, X={x:.1f}")
     if not (e_mean <= tol_mean and e_cov <= tol_cov):
         raise AssertionError(f"moments {name}: beyond tolerance")
-    return max(e_mean, e_cov), float(c_k.sum())
+    return max(e_mean, e_cov), float(c_k[real].sum())
 
 
-def kernel_phase(torch, dev, block_pts, nn_src, nn_tgt):
-    """Hold every kernel against its plain version; time all three."""
+def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt):
+    """Hold every kernel against its plain version; time all three.
+
+    `block_mask` marks the real points of `block_pts` (frame 0 is the nn
+    target, frame 1 its source). The bounds count only the pairs of real
+    points, which are all the main path needs: pad lanes' results are
+    never read."""
     from mrg_slam_tpu_torch.ops import nn_kernel as nk
     from mrg_slam_tpu_torch.ops import stats_kernel as sk
     from mrg_slam_tpu_torch.ops.cloud import pad_invalid
@@ -230,8 +298,11 @@ def kernel_phase(torch, dev, block_pts, nn_src, nn_tgt):
                  <= 0.6).float() @ f for p, f in zip(block_pts, feats)]
 
     b, n, _ = block_pts.shape
-    pairs_nn = nn_src.shape[1] * nn_tgt.shape[1]
-    pairs_blk = b * n * n
+    n_real = block_mask.sum(-1).double()
+    pairs_nn = float(n_real[1] * n_real[0])
+    pairs_blk = float((n_real * n_real).sum())
+    log(f"# real points per frame {int(n_real.min())}-{int(n_real.max())} "
+        f"of {n}; in-radius (0.6 m) real pairs {inside:.0f}")
     rows = []
     for name, src, fk, fp, flib, pairs, opp, extra, out_b, repl in (
             ("nn", "mrg_slam_tpu_torch/csrc/nn.cu",
@@ -301,7 +372,6 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing to run", file=sys.stderr)
         return 1
-    from mrg_slam_tpu_torch.models import odometry_fused as fused
     from mrg_slam_tpu_torch.ops import native, nn_kernel, stats_kernel
     from mrg_slam_tpu_torch.ops import registration as reg
     from mrg_slam_tpu_torch.ops.cloud import PointCloud, pad_invalid
@@ -317,77 +387,41 @@ def main():
     log(f"# kernels built (nvcc, sm_90a) in {native.build_seconds:.1f} s")
 
     t0 = time.perf_counter()
-    traj, raw, rmask = build_world()
-    pre_cfg, odo_cfg = make_configs()
-    raw_d = torch.from_numpy(raw).to(dev)
-    rmask_d = torch.from_numpy(rmask).to(dev)
-    stamps = torch.arange(FRAMES, dtype=torch.float32, device=dev) * 0.1
+    inp = front_end_inputs(torch, dev)
     log(f"# production world: {FRAMES} of {TRAJ_FRAMES} frames (depth cut) "
-        f"x {int(rmask.sum(1).mean())} raw pts, built in "
+        f"x {int(inp.rmask.sum(1).float().mean())} raw pts, built in "
         f"{time.perf_counter() - t0:.1f} s")
 
     # kernel phase inputs at the main path's shapes: the first prefiltered
     # block (count/moments, B=32 x 8192) and one frame pair (nn, 8192^2)
-    blk = prefilter(PointCloud(raw_d[:BLOCK], rmask_d[:BLOCK]), pre_cfg)
+    blk = prefilter(PointCloud(inp.raw[:BLOCK], inp.rmask[:BLOCK]), inp.pre)
     block_pts = pad_invalid(blk.points, blk.mask).contiguous()
     nn_src = blk.points[1:2].contiguous()
     nn_tgt = block_pts[0:1].contiguous()
-    rows = kernel_phase(torch, dev, block_pts, nn_src, nn_tgt)
+    rows = kernel_phase(torch, dev, block_pts, blk.mask, nn_src, nn_tgt)
     src1 = reg.make_source(PointCloud(blk.points[1], blk.mask[1]),
-                           odo_cfg.registration)
+                           inp.odo.registration)
     tgt0 = reg.make_target(PointCloud(blk.points[0], blk.mask[0]),
-                           odo_cfg.registration)
-    sync_ms = sync_cost(torch, odo_cfg, src1, tgt0)
-
-    def front_end(n_frames, timed_from=None, split=None):
-        """Blocks of BLOCK frames through prefilter and run_batch; with
-        `split` (a dict), a sync between the two stages records each one's
-        wall time from block `timed_from` on."""
-        carry = fused.init_carry(FILTERED)
-        poses, iters, kfs = [], [], []
-        t_start = None
-        for s in range(0, n_frames, BLOCK):
-            if s == timed_from:
-                torch.cuda.synchronize()
-                t_start = time.perf_counter()
-            t0 = time.perf_counter()
-            c = prefilter(PointCloud(raw_d[s:s + BLOCK],
-                                     rmask_d[s:s + BLOCK]), pre_cfg)
-            if split is not None and t_start is not None:
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                split["prefilter"] = split.get("prefilter", 0) + t1 - t0
-            carry, outs = fused.run_batch(odo_cfg, carry, c.points, c.mask,
-                                          stamps[s:s + BLOCK])
-            if split is not None and t_start is not None:
-                torch.cuda.synchronize()
-                split["odometry"] = (split.get("odometry", 0)
-                                       + time.perf_counter() - t1)
-            poses.append(outs.pose)
-            iters.append(outs.iterations)
-            kfs.append(outs.is_new_keyframe)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t_start if t_start is not None else None
-        return (torch.cat(poses), torch.cat(iters), torch.cat(kfs), dt)
+                           inp.odo.registration)
+    sync_ms = sync_cost(torch, inp.odo, src1, tgt0)
 
     counters = (nn_kernel.nn_cuda, stats_kernel.count_cuda,
                 stats_kernel.moments_cuda)
     for fn in counters:
         fn.launches = 0
-    poses, iters, kfs, dt = front_end(FRAMES, timed_from=BLOCK)
+    run1 = front_end(torch, inp)
     launches = {"nn": nn_kernel.nn_cuda.launches,
                 "count": stats_kernel.count_cuda.launches,
                 "moments": stats_kernel.moments_cuda.launches}
-    fps = (FRAMES - BLOCK) / dt
-    pose_np = poses.cpu().numpy()
+    pose_np = run1.poses.cpu().numpy()
     if pose_np.shape != (FRAMES, 7) or not np.isfinite(pose_np).all():
         raise AssertionError(f"poses {pose_np.shape} not finite")
-    ate = ate_rmse(pose_np[:, :3], traj[:, :3])
-    gn_iters = int(iters.sum())
+    ate = ate_rmse(pose_np[:, :3], inp.traj[:, :3])
+    gn_iters = int(run1.iterations.sum())
     log(f"# front end at full width: {FRAMES} frames, {RAW} raw -> "
-        f"{FILTERED} filtered pts, {int(kfs.sum())} keyframes, {gn_iters} "
-        f"GN iterations; {fps:.2f} frames/s after a warm-up block; ATE "
-        f"{ate:.4f} m (JAX reference {REF_ATE_M:.4f} m)")
+        f"{FILTERED} filtered pts, {int(run1.keyframes.sum())} keyframes, "
+        f"{gn_iters} GN iterations; ATE {ate:.4f} m (JAX reference "
+        f"{REF_ATE_M:.4f} m)")
     log(f"# launches on the main path: {launches}")
     for k, v in launches.items():
         if v <= 0:
@@ -398,18 +432,33 @@ def main():
     bound_ate = max(REF_ATE_M + 0.05, 1.2 * REF_ATE_M)
     if not ate <= bound_ate:
         raise AssertionError(f"ATE {ate:.4f} m > {bound_ate:.4f} m")
-    again, *_ = front_end(BLOCK)
-    if not torch.equal(again, poses[:BLOCK]):
-        raise AssertionError("block 0 rerun: poses not bitwise identical")
-    log("# block 0 rerun: poses bitwise identical")
+
+    # throughput: the first pass warms the process, so frames/s is the
+    # median of the full passes after it; each must repeat pass 1 bitwise
+    runs = [run1] + [front_end(torch, inp) for _ in range(TIMED_PASSES)]
+    for r in runs[1:]:
+        if not torch.equal(r.poses, run1.poses):
+            raise AssertionError("front end rerun: poses not bitwise "
+                                 "identical")
+    log(f"# {TIMED_PASSES} reruns: poses bitwise identical to pass 1")
+    iters_blk = run1.iterations.view(-1, BLOCK).sum(1).tolist()
+    for i, r in enumerate(runs):
+        log(f"# pass {i + 1}: block walls (ms) "
+            f"{[round(w * 1e3, 1) for w in r.block_walls]} for GN "
+            f"iterations {iters_blk}; {FRAMES / sum(r.block_walls):.2f} "
+            "frames/s")
+    fps = float(np.median([FRAMES / sum(r.block_walls) for r in runs[1:]]))
+    log(f"# {fps:.2f} frames/s (median of passes 2-{TIMED_PASSES + 1})")
     split = {}
-    front_end(FRAMES, timed_from=BLOCK, split=split)
-    per_frame = {k: v / (FRAMES - BLOCK) * 1e3 for k, v in split.items()}
+    front_end(torch, inp, split=split)
+    per_frame = {k: v / FRAMES * 1e3 for k, v in split.items()}
     log(f"# wall per frame with a sync between stages (ms): {per_frame}")
 
     for r in rows:
         r["launches"] = launches[r["name"]]
-    log(json.dumps({"frames_per_s": fps, "ate_m": ate, "ref_ate_m": REF_ATE_M,
+    log(json.dumps({"frames_per_s": fps,
+                    "pass1_frames_per_s": FRAMES / sum(run1.block_walls),
+                    "ate_m": ate, "ref_ate_m": REF_ATE_M,
                     "frames": FRAMES, "gn_iterations": gn_iters,
                     "host_sync_ms_per_iter": sync_ms,
                     "stage_ms_per_frame": per_frame,

@@ -16,9 +16,11 @@ Tolerances and why:
   is under 1e-3 wherever the normal is well posed (gap > 0.05). A
   neighbourhood without a unique normal (a few nearly collinear points)
   takes its normal from rounding noise in either package.
-- align: with the same covariances, poses within 1e-4; end to end (each
-  package its own covariances) within 5e-3 m / 5e-3 rad of each other and
-  0.05 m of the truth, as the reference's own test asks.
+- align: with the same covariances, poses within 1e-4 and the same
+  iteration count and converged flag (also with the stall exit, the coarse
+  stage and reciprocal correspondences on); end to end (each package its
+  own covariances) within 5e-3 m / 5e-3 rad of each other and 0.05 m of
+  the truth, as the reference's own test asks.
 """
 
 import dataclasses
@@ -280,17 +282,29 @@ def _three_planes(rng, n=500):
     return np.concatenate([floor, wall, wall2]).astype(np.float32)
 
 
-@pytest.mark.parametrize("method", ["SMALL_GICP", "ICP"])
-def test_align_three_planes_matches_jax(rng, method):
+# the stall exit, the coarse stage and reciprocal correspondences at once:
+# an update epsilon out of reach leaves the stall exit to end the solve
+_STALL_COARSE_RECIPROCAL = dict(reg_transformation_epsilon=1e-9,
+                                reg_stall_epsilon=1e-3, reg_coarse_stride=2,
+                                reg_coarse_iterations=4,
+                                reg_use_reciprocal_correspondences=True)
+
+
+@pytest.mark.parametrize(
+    "method,opts", [("SMALL_GICP", {}), ("ICP", {}),
+                    ("SMALL_GICP", _STALL_COARSE_RECIPROCAL)],
+    ids=["SMALL_GICP", "ICP", "SMALL_GICP-stall-coarse-reciprocal"])
+def test_align_three_planes_matches_jax(rng, method, opts):
     pts = _three_planes(rng)
     gt = jse3.pose_exp(jnp.asarray([0.3, -0.2, 0.1, 0.02, 0.03, -0.05],
                                    dtype=jnp.float32))
     src = np.asarray(jse3.pose_apply(jse3.pose_inverse(gt),
                                      jnp.asarray(pts)))
-    jp = JRegistrationConfig(registration_method=method,
-                             reg_covariance_mode="radius",
-                             reg_covariance_radius=1.0,
-                             reg_transformation_epsilon=1e-4)
+    jp = JRegistrationConfig(**{**dict(registration_method=method,
+                                       reg_covariance_mode="radius",
+                                       reg_covariance_radius=1.0,
+                                       reg_transformation_epsilon=1e-4),
+                                **opts})
     tp = config_from_fields(dataclasses.asdict(jp))
     jsrc = jreg.make_source(JCloud.from_array(src, 2048), jp)
     jtgt = jreg.make_target(JCloud.from_array(pts, 2048), jp)
@@ -320,6 +334,38 @@ def test_align_three_planes_matches_jax(rng, method):
     assert abs(int(sres.num_inliers) - int(jres.num_inliers)) <= 2
     np.testing.assert_allclose(sres.hessian.numpy(), np.asarray(jres.hessian),
                                rtol=1e-3, atol=1e-2)
+    assert bool(sres.converged) == bool(jres.converged)
+    if opts:
+        # only the stall exit can have ended these solves early
+        assert bool(jres.converged)
+        assert int(jres.iterations) < jp.reg_maximum_iterations
+
+
+def test_align_no_correspondences_matches_jax(rng):
+    """With the stall exit on, a solve without a single correspondence
+    ends after one iteration, unconverged, in both packages (an update
+    epsilon of 0 is never met, so nothing else can end it early)."""
+    pts = _three_planes(rng)
+    jp = JRegistrationConfig(registration_method="SMALL_GICP",
+                             reg_covariance_mode="radius",
+                             reg_covariance_radius=1.0,
+                             reg_transformation_epsilon=0.0,
+                             reg_stall_epsilon=1e-3)
+    tp = config_from_fields(dataclasses.asdict(jp))
+    far = pts + np.float32(100.0)
+    jres = jreg.align(jp, jreg.make_source(JCloud.from_array(far, 2048), jp),
+                      jreg.make_target(JCloud.from_array(pts, 2048), jp),
+                      jse3.pose_identity())
+    tres = treg.align(
+        tp, treg.make_source(PointCloud.from_array(far, 2048, device="cpu"),
+                             tp),
+        treg.make_target(PointCloud.from_array(pts, 2048, device="cpu"), tp),
+        tse3.pose_identity())
+    assert int(jres.iterations) == int(tres.iterations) == 1
+    assert not bool(jres.converged) and not bool(tres.converged)
+    assert int(jres.num_inliers) == int(tres.num_inliers) == 0
+    np.testing.assert_allclose(tres.pose.numpy(), np.asarray(jres.pose),
+                               atol=1e-6)
 
 
 def test_registration_voxel_family_raises(rng):

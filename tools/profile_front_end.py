@@ -1,14 +1,15 @@
 """Front-end throughput and a device profile of the PyTorch port, on a card.
 
-    python tools/profile_front_end.py [--reps 3] [--profile]
+    python tools/profile_front_end.py [--passes 4] [--profile]
 
 Builds chip_smoke.py's world and configs (bench.py's production world,
-96 frames), runs the port's front end (prefilter -> run_batch, 32-frame
-blocks) `reps` times and prints frames/s of each run, timed from the
-second block on. With --profile it then traces one block with
-torch.profiler and prints the device-busy share of the block's wall time,
-kernel launches per frame, and the top ops by device and by host time.
-Needs a CUDA card.
+96 frames) and runs chip_smoke.front_end (prefilter -> run_batch, 32-frame
+blocks) `passes` times, printing each pass's block walls and frames/s;
+pass 1 warms the process. With --profile it then traces one more full
+pass with torch.profiler and prints the device time per frame, the same
+over the unprofiled wall per frame (median of passes 2 on; the device-busy
+share), the profiled wall, kernel launches per frame, and the top ops by
+device and by host time. Needs a CUDA card.
 """
 
 import argparse
@@ -17,68 +18,51 @@ import os
 import sys
 import time
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-import chip_smoke  # noqa: E402  (world, configs and sizes)
+import chip_smoke  # noqa: E402  (world, configs, sizes and the front end)
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--passes", type=int, default=4)
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
 
     import torch
 
-    from mrg_slam_tpu_torch.models import odometry_fused as fused
-    from mrg_slam_tpu_torch.ops.cloud import PointCloud
-    from mrg_slam_tpu_torch.ops.prefilter import prefilter
     from mrg_slam_tpu_torch.runtime import resolve_device
 
-    dev = resolve_device()
-    block, frames = chip_smoke.BLOCK, chip_smoke.FRAMES
-    traj, raw, rmask = chip_smoke.build_world()
-    pre_cfg, odo_cfg = chip_smoke.make_configs()
-    raw_d = torch.from_numpy(raw).to(dev)
-    rmask_d = torch.from_numpy(rmask).to(dev)
-    stamps = torch.arange(frames, dtype=torch.float32, device=dev) * 0.1
-
-    def run_block(carry, s):
-        c = prefilter(PointCloud(raw_d[s:s + block], rmask_d[s:s + block]),
-                      pre_cfg)
-        return fused.run_batch(odo_cfg, carry, c.points, c.mask,
-                               stamps[s:s + block])[0]
-
-    fps = []
-    for _ in range(args.reps):
-        carry = run_block(fused.init_carry(chip_smoke.FILTERED), 0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for s in range(block, frames, block):
-            carry = run_block(carry, s)
-        torch.cuda.synchronize()
-        fps.append((frames - block) / (time.perf_counter() - t0))
-    out = {"card": chip_smoke.card_line(), "frames_per_s": fps}
+    frames = chip_smoke.FRAMES
+    inp = chip_smoke.front_end_inputs(torch, resolve_device())
+    fps, walls = [], []
+    for _ in range(args.passes):
+        run = chip_smoke.front_end(torch, inp)
+        walls.append([round(w * 1e3, 2) for w in run.block_walls])
+        fps.append(frames / sum(run.block_walls))
+    out = {"card": chip_smoke.card_line(), "frames_per_s": fps,
+           "block_walls_ms": walls}
+    wall_ms = 1e3 / float(np.median(fps[1:] or fps))
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
-        carry = run_block(fused.init_carry(chip_smoke.FILTERED), 0)
-        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run_block(carry, block)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-        out.update(block_wall_ms=wall * 1e3,
-                   device_busy_ms=busy_us / 1e3,
-                   device_busy_share=busy_us / 1e6 / wall,
-                   kernel_launches_per_frame=len(kernels) / block)
+            chip_smoke.front_end(torch, inp)
+            prof_wall = time.perf_counter() - t0
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+        out.update(device_ms_per_frame=busy_ms / frames,
+                   wall_ms_per_frame=wall_ms,
+                   device_busy_share=busy_ms / frames / wall_ms,
+                   profiled_wall_ms_per_frame=prof_wall * 1e3 / frames,
+                   device_launches_per_frame=len(device) / frames)
         avg = prof.key_averages()
         print(avg.table(sort_by="self_device_time_total", row_limit=15))
         print(avg.table(sort_by="self_cpu_time_total", row_limit=15))
