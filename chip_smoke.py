@@ -5,12 +5,15 @@
 
 Builds the hand-written kernels of `mrg_slam_tpu_torch/csrc/` for sm_90a,
 holds each one against its plain PyTorch version on the card at the shapes
-of the front end's main path, then drives the front end (prefilter ->
+of the front end's main path (with and without the rows' extents and
+masks, ragged rows included), then drives the front end (prefilter ->
 fused GICP odometry) at full width on bench.py's production world and
 checks its ATE against the JAX package's on the same frames. Any failed
 check raises. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
-its launches, error and times.
+its launches, error and times (a kernel's "ms" is its device time per
+launch in a CUDA graph; plain and library times are one call between
+CUDA events).
 
 Needs a CUDA card; without one it exits non-zero and prints no result.
 Imports nothing of JAX and nothing of the JAX package.
@@ -41,6 +44,7 @@ PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 U32 = 2.0 ** -24  # float32 unit roundoff
 TIMING_REPS = 20
+GRAPH_LAUNCHES = 20  # kernel calls per timed CUDA graph
 TIMED_PASSES = 3  # full front-end passes timed after the first
 
 
@@ -71,6 +75,23 @@ def cuda_ms(torch, fn, reps=TIMING_REPS, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def graph_ms(torch, fn, launches=GRAPH_LAUNCHES, reps=TIMING_REPS):
+    """Device time of one fn() (median over `reps`): a CUDA graph of
+    `launches` calls replayed back to back, so no host time of the wrapper
+    falls between two launches, as it does around a single call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capturing stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(torch, graph.replay, reps) / launches
 
 
 def bound(pairs, ops_per_pair, extra_ops, nbytes):
@@ -190,9 +211,11 @@ def uniform_input(torch, dev, n, rng):
     return (torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev))
 
 
-def check_nn(torch, nk, src, tgt_padded, name):
-    d_k, i_k = nk.nn_cuda(src, tgt_padded)
-    d_p, i_p = nk.nn_plain(src, tgt_padded)
+def check_nn(torch, nk, src, tgt_padded, name, *lanes):
+    """Bitwise on every lane, the fixed (inf, 0) of the lanes that take no
+    part included; `lanes` are nn_cuda's extents and masks."""
+    d_k, i_k = nk.nn_cuda(src, tgt_padded, *lanes)
+    d_p, i_p = nk.nn_plain(src, tgt_padded, *lanes)
     torch.cuda.synchronize()
     if not torch.equal(i_k, i_p):
         raise AssertionError(f"nn {name}: {(i_k != i_p).sum().item()} "
@@ -214,7 +237,7 @@ def check_count(torch, sk, pts, r2, name):
     return float((c_k - c_p).abs().max())
 
 
-def check_moments(torch, sk, pts, r2, name):
+def check_moments(torch, sk, pts, r2, name, ext=None, mask=None):
     """Counts exact; mean and cov within the float32 summation bound.
 
     The kernel sums neighbours in index order, the plain version through
@@ -222,12 +245,22 @@ def check_moments(torch, sk, pts, r2, name):
     terms up to X differ by at most ~2 n u X (u = 2^-24), so
     mean <= 2 n u X and, through cov = M2/n - mean mean^T with its
     cancellation, cov <= 2 n u X^2 + 2 X (mean bound); X = max |coord|
-    over the real points, n = the largest neighbour count.
+    over the real points, n = the largest neighbour count. With row
+    extents `ext` (and masks `mask`), the lanes that take no part must
+    hold zeros.
     """
-    m_k = sk.moments_cuda(pts, pts, r2)
-    m_p = sk.moments_plain(pts, pts, r2)
+    m_k = sk.moments_cuda(pts, pts, r2, ext, ext, mask, mask)
+    m_p = sk.moments_plain(pts, pts, r2, ext, ext, mask, mask)
     torch.cuda.synchronize()
     real = (pts.abs() < 1e5).all(-1)  # moments of pad lanes are unused
+    if ext is not None:
+        lanes = torch.arange(pts.shape[1], device=pts.device)
+        out = lanes[None, :] >= ext[:, None]
+        if mask is not None:
+            out = out | ~mask
+        if not (m_k[out] == 0).all():
+            raise AssertionError(f"moments {name}: lanes that take no part "
+                                 "are not zero")
     c_k, mean_k, cov_k = sk.moments_to_mean_cov(m_k)
     c_p, mean_p, cov_p = sk.moments_to_mean_cov(m_p)
     if not torch.equal(c_k[real], c_p[real]):
@@ -245,16 +278,56 @@ def check_moments(torch, sk, pts, r2, name):
     return max(e_mean, e_cov), float(c_k[real].sum())
 
 
+# ragged rows for the extent checks: (name, source extents, target
+# extents, lanes, hole lanes); B = 3 rows that end at different lanes, a
+# row with no valid lane, holes, extents on no tile boundary
+RAGGED = (("ragged rows", (997, 3, 0), (1, 640, 999), 1000, ()),
+          ("holes", (700, 129, 257), (300, 513, 1), 800, (5, 128, 129, 255)))
+
+
+def ragged_rows(torch, dev, rng, exts, n, holes):
+    """Rows of n lanes ending at `exts`, `holes` masked, masked lanes at
+    PAD_VALUE; half of each row a dense cluster. -> (points, mask, row
+    extents)."""
+    from mrg_slam_tpu_torch.ops.cloud import pad_invalid
+    from mrg_slam_tpu_torch.ops.knn import row_extent
+
+    pts = rng.uniform(-45, 45, (len(exts), n, 3)).astype(np.float32)
+    pts[:, n // 2:] = pts[:, n // 2:] * 0.02 + 30.0
+    mask = np.arange(n)[None, :] < np.asarray(exts)[:, None]
+    mask[:, list(holes)] = False
+    for r, e in enumerate(exts):
+        if e:
+            mask[r, e - 1] = True
+    mask = torch.from_numpy(mask).to(dev)
+    return (pad_invalid(torch.from_numpy(pts).to(dev), mask).contiguous(),
+            mask, row_extent(mask))
+
+
+def launch_floor_ms(torch, native):
+    """An empty kernel (csrc/launch_floor.cu): its CUDA-event time around
+    one call, and its device time per launch in a CUDA graph."""
+    fn = native.library("launch_floor").mrg_empty
+
+    def empty():
+        native.check_rc(fn(native.stream_ptr(torch.device("cuda"))), "empty")
+
+    return cuda_ms(torch, empty), graph_ms(torch, empty)
+
+
 def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt):
     """Hold every kernel against its plain version; time all three.
 
     `block_mask` marks the real points of `block_pts` (frame 0 is the nn
-    target, frame 1 its source). The bounds count only the pairs of real
-    points, which are all the main path needs: pad lanes' results are
-    never read."""
+    target, frame 1 its source). nn and moments get the rows' extents, as
+    on the main path. The bounds count only the pairs of real points,
+    which are all the main path needs: pad lanes' results are never
+    read."""
+    from mrg_slam_tpu_torch.ops import native
     from mrg_slam_tpu_torch.ops import nn_kernel as nk
     from mrg_slam_tpu_torch.ops import stats_kernel as sk
     from mrg_slam_tpu_torch.ops.cloud import pad_invalid
+    from mrg_slam_tpu_torch.ops.knn import row_extent
 
     rng = np.random.default_rng(0)
     u_pts, u_mask = uniform_input(torch, dev, FILTERED, rng)
@@ -267,22 +340,45 @@ def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt):
     d_e, i_e = nk.nn_cuda(src_u, empty)
     if not (torch.isinf(d_e).all() and (i_e == 0).all()):
         raise AssertionError("nn: an all-masked target must give inf, 0")
-    err_nn = check_nn(torch, nk, nn_src, nn_tgt, "real")
     r2c, r2m = sk.radius_sq(0.5), sk.radius_sq(0.6)
+    for name, s_exts, t_exts, n_lanes, holes in RAGGED:
+        src_r, sm, se = ragged_rows(torch, dev, rng, s_exts, n_lanes, holes)
+        tgt_r, tm, te = ragged_rows(torch, dev, rng, t_exts, n_lanes, holes)
+        check_nn(torch, nk, src_r, tgt_r, name, se, te)
+        check_nn(torch, nk, src_r, tgt_r, name + ", masks", se, te, sm, tm)
+        check_moments(torch, sk, src_r, r2m, name, se)
+        check_moments(torch, sk, src_r, r2m, name + ", masks", se, sm)
+    # the main path's lanes: each frame's mask and its extent (the last
+    # real lane plus one)
+    ext_blk = row_extent(block_mask)
+    nn_lanes = (ext_blk[1:2], ext_blk[0:1], block_mask[1:2].contiguous(),
+                block_mask[0:1].contiguous())
+    check_nn(torch, nk, nn_src, nn_tgt, "real, every lane")
+    check_nn(torch, nk, nn_src, nn_tgt, "real, extents", *nn_lanes[:2])
+    err_nn = check_nn(torch, nk, nn_src, nn_tgt, "real", *nn_lanes)
     check_count(torch, sk, u_pad, r2c, "uniform")
     err_c = check_count(torch, sk, block_pts, r2c, "real block")
     check_moments(torch, sk, u_pad, r2m, "uniform")
-    err_m, inside = check_moments(torch, sk, block_pts, r2m, "real block")
-    log("# kernels == plain versions on the card (nn bitwise, counts exact, "
-        "moments within the f32 summation bound)")
+    check_moments(torch, sk, block_pts, r2m, "real block, every lane")
+    err_m, inside = check_moments(torch, sk, block_pts, r2m, "real block",
+                                  ext_blk, block_mask)
+    log("# kernels == plain versions on the card (nn bitwise on every lane, "
+        "counts exact, moments within the f32 summation bound; with and "
+        "without row extents and masks)")
 
+    # the library yardsticks compute the same function: pairs of real
+    # points (their lanes found on the host here, outside the path)
+    exts = ext_blk.tolist()
+    real = [m.nonzero().squeeze(1) for m in block_mask]
     feats = torch.cat([torch.ones_like(block_pts[..., :1]), block_pts,
                        *(block_pts[..., a:a + 1] * block_pts[..., b:b + 1]
                          for a, b in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2),
                                       (2, 2)))], dim=-1)
 
+    nn_src_real, nn_tgt_real = nn_src[:, real[1]], nn_tgt[:, real[0]]
+
     def lib_nn():
-        d = torch.cdist(nn_src, nn_tgt,
+        d = torch.cdist(nn_src_real, nn_tgt_real,
                         compute_mode="donot_use_mm_for_euclid_dist")
         return d.min(dim=-1)
 
@@ -293,36 +389,45 @@ def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt):
             torch.cdist(p, p, compute_mode="donot_use_mm_for_euclid_dist")
             for p in block_pts)]
 
+    pts_real = [p[r] for p, r in zip(block_pts, real)]
+    feats_real = [f[r] for f, r in zip(feats, real)]
+
     def lib_moments():
         return [(torch.cdist(p, p, compute_mode="donot_use_mm_for_euclid_dist")
-                 <= 0.6).float() @ f for p, f in zip(block_pts, feats)]
+                 <= 0.6).float() @ f for p, f in zip(pts_real, feats_real)]
 
     b, n, _ = block_pts.shape
     n_real = block_mask.sum(-1).double()
     pairs_nn = float(n_real[1] * n_real[0])
     pairs_blk = float((n_real * n_real).sum())
     log(f"# real points per frame {int(n_real.min())}-{int(n_real.max())} "
-        f"of {n}; in-radius (0.6 m) real pairs {inside:.0f}")
+        f"of {n}, extents {min(exts)}-{max(exts)}; in-radius (0.6 m) real "
+        f"pairs {inside:.0f}")
+    floor_ms = launch_floor_ms(torch, native)
+    blk_lanes = (ext_blk, ext_blk, block_mask, block_mask)
     rows = []
     for name, src, fk, fp, flib, pairs, opp, extra, out_b, repl in (
             ("nn", "mrg_slam_tpu_torch/csrc/nn.cu",
-             lambda: nk.nn_cuda(nn_src, nn_tgt),
-             lambda: nk.nn_plain(nn_src, nn_tgt), lib_nn, pairs_nn, 9, 0,
-             nn_src.shape[1] * 8, "mrg_slam_tpu/ops/pallas_nn.py:48"),
+             lambda: nk.nn_cuda(nn_src, nn_tgt, *nn_lanes),
+             lambda: nk.nn_plain(nn_src, nn_tgt, *nn_lanes), lib_nn,
+             pairs_nn, 9, 0, nn_src.shape[1] * 12,
+             "mrg_slam_tpu/ops/pallas_nn.py:48"),
             ("count", "mrg_slam_tpu_torch/csrc/radius_stats.cu",
              lambda: sk.count_cuda(block_pts, block_pts, r2c),
              lambda: sk.count_plain(block_pts, block_pts, r2c), lib_count,
              pairs_blk, 11, 0, b * n * 4,
              "mrg_slam_tpu/ops/pallas_stats.py:34"),
             ("moments", "mrg_slam_tpu_torch/csrc/radius_stats.cu",
-             lambda: sk.moments_cuda(block_pts, block_pts, r2m),
-             lambda: sk.moments_plain(block_pts, block_pts, r2m),
+             lambda: sk.moments_cuda(block_pts, block_pts, r2m, *blk_lanes),
+             lambda: sk.moments_plain(block_pts, block_pts, r2m,
+                                      *blk_lanes),
              lib_moments, pairs_blk, 9, 16 * inside, b * n * 40,
              "mrg_slam_tpu/ops/pallas_stats.py:93")):
         in_b = (nn_src.numel() + nn_tgt.numel()) * 4 if name == "nn" \
             else block_pts.numel() * 4
         bms, by = bound(pairs, opp, extra, in_b + out_b)
-        ms = cuda_ms(torch, fk)
+        ms = graph_ms(torch, fk)
+        call_ms = cuda_ms(torch, fk)
         plain_ms = cuda_ms(torch, fp)
         lib_ms = cuda_ms(torch, flib)
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
@@ -331,8 +436,12 @@ def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt):
                                       "moments": err_m}[name],
                          ms=ms, plain_ms=plain_ms, bound_ms=bms,
                          bound_by=by, library_ms=lib_ms))
-        log(f"# {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        # the launch floor: no launch, however small, takes less
+        log(f"# {name}: kernel {ms:.4f} ms a launch in a CUDA graph "
+            f"({call_ms:.4f} ms around one call), plain {plain_ms:.4f} ms, "
+            f"library {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}); launch "
+            f"floor: an empty kernel takes {floor_ms[0]:.4f} ms around one "
+            f"call, {floor_ms[1]:.4f} ms a launch in a CUDA graph")
     return rows
 
 
@@ -344,10 +453,12 @@ def sync_cost(torch, odo, src, tgt):
 
     params = odo.registration
 
+    st = reg.stage_consts(src, tgt)
+
     def run(read_flag):
         pose = se3.pose_identity(src.points.device)
         for _ in range(12):
-            xi, *_ = reg._gn_step(params, src, tgt, pose)
+            xi, *_ = reg._gn_step(params, src, tgt, pose, st)
             pose = se3.pose_retract(pose, xi)
             if read_flag:
                 bool(torch.linalg.vector_norm(xi) < 0)

@@ -2,14 +2,28 @@
 (csrc/radius_stats.cu) and their plain PyTorch versions.
 
 Counterpart of the JAX package's ops/pallas_stats.py. Every function takes
-a batch of source clouds (B, N, 3) and target clouds (B, M, 3) whose masked
-targets the caller has already moved to PAD_VALUE, and r2 = radius^2 as a
-float32 (`radius_sq`):
+a batch of source clouds (B, N, 3) and target clouds (B, M, 3), and
+r2 = radius^2 as a float32 (`radius_sq`). Masked targets must sit at
+PAD_VALUE, unless the caller leaves them out (below):
 
 - count:   (B, N) int32, #targets with 0 < d2 <= r2 (self and exact
            duplicates excluded);
 - moments: (B, N, 10) f32 lanes [count, sx, sy, sz, xx, xy, xz, yy, yz,
            zz], raw sums over targets with d2 <= r2 (self included).
+
+Lanes that take part (moments only; count sweeps every lane). `src_ext`
+and `tgt_ext` are (B,) int32 row extents (`ops.knn.row_extent`: the index
+of the row's last valid lane plus one), `src_mask` (B, N) and `tgt_mask`
+(B, M) bool masks, all on the clouds' device; None means every lane. A
+lane takes part when it lies below its row's extent and its mask is set.
+Only targets that take part are summed, and a source lane that does not
+gets all-zero moments without being computed. On a source lane that takes
+part, the count is the Pallas kernel's and the sums are taken in the same
+ascending target order. On a masked-out source lane the moments may
+differ from the JAX package's, and no caller reads them:
+- `knn.radius_count` (count) zeroes masked lanes;
+- `covariance.estimate_covariances_radius` (moments) gives masked lanes
+  the identity covariance.
 
 `moments_to_mean_cov` turns moments into mean and covariance with the
 reference's formula. `ops.knn.radius_count` and
@@ -18,30 +32,33 @@ reference's formula. `ops.knn.radius_count` and
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import native
-from .nn_kernel import _shapes
+from .nn_kernel import _shapes, left_out
 
 MOMENT_LANES = 10
 
 
 def radius_sq(radius: float) -> float:
-    """radius^2 as the reference forms it: the product of the float32
-    radius with itself, rounded to float32."""
+    """radius^2 as the JAX package forms it: the float32 radius times
+    itself in float32. Its `jnp.float32(radius * radius)` runs inside a
+    jitted function that traces `radius` as a float32, so the product is a
+    float32 multiply, not a double product rounded once; the two differ
+    for about half of all radii (tests/test_torch_radius.py)."""
     r = np.float32(radius)
     return float(r * r)
 
 
-def _launch(name: str, symbol: str, src, tgt, r2, out) -> None:
+def _launch(name: str, symbol: str, src, tgt, r2, out, *lanes) -> None:
     b, n, m = _shapes(src, tgt)
     fn = getattr(native.library("radius_stats"), symbol)
     with torch.cuda.device(src.device):
-        rc = fn(src.data_ptr(), tgt.data_ptr(), b, n, m, r2, out.data_ptr(),
-                native.stream_ptr(src.device))
+        rc = fn(src.data_ptr(), tgt.data_ptr(), b, n, m, r2, *lanes,
+                out.data_ptr(), native.stream_ptr(src.device))
     native.check_rc(rc, name)
 
 
@@ -59,14 +76,20 @@ def count_cuda(src: torch.Tensor, tgt: torch.Tensor, r2: float
 count_cuda.launches = 0
 
 
-def moments_cuda(src: torch.Tensor, tgt: torch.Tensor, r2: float
-                 ) -> torch.Tensor:
+def moments_cuda(src: torch.Tensor, tgt: torch.Tensor, r2: float,
+                 src_ext: Optional[torch.Tensor] = None,
+                 tgt_ext: Optional[torch.Tensor] = None,
+                 src_mask: Optional[torch.Tensor] = None,
+                 tgt_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch csrc/radius_stats.cu:moments_kernel on CUDA tensors."""
-    b, n, _ = _shapes(src, tgt)
+    b, n, m = _shapes(src, tgt)
     native.check_cuda_f32(src, tgt)
+    se, sm = native.lane_ptrs(src.device, b, n, src_ext, src_mask)
+    te, tm = native.lane_ptrs(src.device, b, m, tgt_ext, tgt_mask)
     out = torch.empty((b, n, MOMENT_LANES), dtype=torch.float32,
                       device=src.device)
-    _launch("moments", "mrg_radius_moments", src, tgt, r2, out)
+    _launch("moments", "mrg_radius_moments", src, tgt, r2, out, se, te, sm,
+            tm)
     moments_cuda.launches += 1
     return out
 
@@ -95,15 +118,31 @@ def count_plain(src: torch.Tensor, tgt: torch.Tensor, r2: float,
 
 
 def moments_plain(src: torch.Tensor, tgt: torch.Tensor, r2: float,
+                  src_ext: Optional[torch.Tensor] = None,
+                  tgt_ext: Optional[torch.Tensor] = None,
+                  src_mask: Optional[torch.Tensor] = None,
+                  tgt_mask: Optional[torch.Tensor] = None,
                   chunk: int = 1024) -> torch.Tensor:
-    b, n, _ = _shapes(src, tgt)
+    """Targets that take no part are left out and sources that take no
+    part get zeros, as in the kernel; the sums go through a matmul, in
+    another order than the kernel's."""
+    b, n, m = _shapes(src, tgt)
     x, y, z = tgt.unbind(-1)
     feats = torch.stack([torch.ones_like(x), x, y, z, x * x, x * y, x * z,
                          y * y, y * z, z * z], dim=-1)  # (B, M, 10)
+    t_past = left_out(tgt_ext, tgt_mask, b, m, src.device)
+    if t_past is not None:  # whatever such lanes hold, they add nothing
+        feats = feats.masked_fill(t_past[..., None], 0.0)
     out = torch.empty((b, n, MOMENT_LANES), dtype=torch.float32,
                       device=src.device)
     for s, d in _sqdist_chunks(src, tgt, chunk):
-        out[:, s:s + chunk] = (d <= r2).to(torch.float32) @ feats
+        w = d <= r2
+        if t_past is not None:
+            w = w & ~t_past[:, None, :]
+        out[:, s:s + chunk] = w.to(torch.float32) @ feats
+    s_past = left_out(src_ext, src_mask, b, n, src.device)
+    if s_past is not None:
+        out = out.masked_fill(s_past[..., None], 0.0)
     return out
 
 

@@ -17,6 +17,12 @@ Tolerances and why:
 - moments: counts exact; mean and cov within 2 n u X and 2 n u X^2 + 2 X
   (mean tol) (u = 2^-24, n = neighbours, X = max |coord|): two float32
   summation orders of the raw sums differ by at most that.
+- lanes that take part (row extents and masks): on every valid source
+  lane the plain versions given the rows' extents and masks equal the
+  Pallas kernels (run row by row) as above, and the plain versions that
+  sweep every lane bit for bit; on every other source lane (masked, or
+  past the row's extent) they write the fixed values, (inf, 0) for nn and
+  zeros for moments.
 """
 
 import numpy as np
@@ -175,6 +181,136 @@ def test_moments_plain_matches_pallas_and_golden(interpret_pallas, rng):
                                atol=tol_cov)
 
 
+# per-row masks of 3 rows of 700 lanes: (row extents, hole lanes). None
+# of the extents is a multiple of a tile of the Pallas kernels (1024,
+# 2048, 512) or of the CUDA ones (128, 256, 1024, 2048)
+_EXTENT_CASES = {
+    "prefix": ((697, 389, 131), ()),
+    "holes": ((601, 453, 77), (3, 40, 41, 42, 76, 300, 450)),
+    "empty_row": ((0, 650, 333), (5, 6, 100)),
+}
+
+
+def _extent_masks(case, b=3, n=700):
+    exts, holes = _EXTENT_CASES[case]
+    mask = np.arange(n)[None, :] < np.asarray(exts)[:, None]
+    for h in holes:
+        mask[:, h] = False
+    for r, e in enumerate(exts):  # an extent is a valid lane plus one
+        if e:
+            mask[r, e - 1] = True
+    return mask, np.asarray(exts, np.int32)
+
+
+def _clustered_rows(rng, b=3, n=700):
+    """Per row: dense clusters at the origin and near (42, -42, 40) with
+    exact duplicates, as in _clustered."""
+    pts = rng.uniform(-3, 3, size=(b, n, 3)).astype(np.float32)
+    pts[:, n // 2:] += np.float32([42.0, -42.0, 40.0])
+    pts[:, 100:130] = pts[:, :30]
+    return pts
+
+
+def test_row_extent_is_last_valid_lane_plus_one():
+    for case in _EXTENT_CASES:
+        mask, exts = _extent_masks(case)
+        got = knn.row_extent(_t(mask))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), exts)
+        past = np.arange(mask.shape[1])[None, :] >= exts[:, None]
+        assert not mask[past].any()
+    assert knn.row_extent(torch.zeros((2, 0), dtype=torch.bool)).shape == (2,)
+
+
+@pytest.mark.parametrize("case", sorted(_EXTENT_CASES))
+def test_nn_plain_extents_match_pallas(interpret_pallas, rng, case):
+    from mrg_slam_tpu.ops.pallas_nn import nearest_neighbor_pallas
+
+    smask, sext = _extent_masks(case)
+    tmask, text = _extent_masks(case)
+    tmask, text = tmask[::-1].copy(), text[::-1].copy()  # other extents
+    src = rng.uniform(-45, 45, size=smask.shape + (3,)).astype(np.float32)
+    tgt = rng.uniform(-45, 45, size=tmask.shape + (3,)).astype(np.float32)
+    src[:, :40] = tgt[:, 20:60]  # sources on targets: d2 == 0 and ties
+    tgt[:, 300:320] = tgt[:, 20:40]
+    d2, idx = knn.nearest_neighbor(_t(src), _t(tgt), _t(tmask), _t(smask))
+    d2, idx = d2.numpy(), idx.numpy()
+    pad = np.where(tmask[..., None], tgt, np.float32(PAD_VALUE))
+    fd2, fidx = nn_kernel.nn_plain(_t(src), _t(pad))  # every lane
+    for r in range(src.shape[0]):
+        v = smask[r]
+        pd2, pidx = (np.asarray(a) for a in nearest_neighbor_pallas(
+            jnp.asarray(src[r]), jnp.asarray(tgt[r]), jnp.asarray(tmask[r])))
+        np.testing.assert_array_equal(idx[r][v], pidx[v])
+        np.testing.assert_allclose(d2[r][v], pd2[v], rtol=4 * U32, atol=0)
+        assert np.array_equal(d2[r][v].view(np.int32),
+                              fd2[r].numpy()[v].view(np.int32))
+        assert np.array_equal(idx[r][v], fidx[r].numpy()[v])
+        # masked lanes, those past the extent among them: (inf, 0)
+        assert np.isinf(d2[r][~v]).all() and (idx[r][~v] == 0).all()
+        if text[r] == 0:  # no target: (inf, 0) everywhere
+            assert np.isinf(d2[r]).all() and (idx[r] == 0).all()
+
+
+def test_nn_without_src_mask_computes_every_lane(interpret_pallas, rng):
+    """src_mask=None: every source lane is valid, so every real source
+    gets the Pallas result, up to the last lane."""
+    from mrg_slam_tpu.ops.pallas_nn import nearest_neighbor_pallas
+
+    src = rng.uniform(-45, 45, size=(700, 3)).astype(np.float32)
+    src[300:340] = PAD_VALUE  # pads among real sources
+    tgt = rng.uniform(-45, 45, size=(500, 3)).astype(np.float32)
+    tmask = np.ones(500, bool)
+    tmask[450:] = False
+    d2, idx = knn.nearest_neighbor(_t(src), _t(tgt), _t(tmask))
+    pd2, pidx = (np.asarray(a) for a in nearest_neighbor_pallas(
+        jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(tmask)))
+    real = (np.abs(src) < 1e5).all(-1)
+    np.testing.assert_array_equal(idx.numpy()[real], pidx[real])
+    np.testing.assert_allclose(d2.numpy()[real], pd2[real], rtol=4 * U32,
+                               atol=0)
+    assert np.isfinite(d2.numpy()[real]).all() and real[-1]
+
+
+@pytest.mark.parametrize("case", sorted(_EXTENT_CASES))
+def test_moments_plain_extents_match_pallas(interpret_pallas, rng, case):
+    from mrg_slam_tpu.ops.pallas_stats import radius_moments_pallas
+
+    mask, exts = _extent_masks(case)
+    pts = _clustered_rows(rng)
+    padded = np.where(mask[..., None], pts, np.float32(PAD_VALUE))
+    ext = knn.row_extent(_t(mask))
+    r2 = stats_kernel.radius_sq(1.0)
+    # the extents alone (pads inside them sit at PAD_VALUE), and with the
+    # masks on the unpadded points, as estimate_covariances_radius calls it
+    by_ext = stats_kernel.moments_plain(_t(padded), _t(padded), r2, ext, ext)
+    mo = stats_kernel.moments_plain(_t(pts), _t(pts), r2, ext, ext,
+                                    _t(mask), _t(mask))
+    full = stats_kernel.moments_plain(_t(padded), _t(padded), r2)
+    cnt, mean, cov = (v.numpy() for v in
+                      stats_kernel.moments_to_mean_cov(mo))
+    for r in range(pts.shape[0]):
+        m = mask[r]
+        past = np.arange(pts.shape[1]) >= exts[r]
+        assert (by_ext[r].numpy()[past] == 0).all()
+        assert (mo[r].numpy()[~m] == 0).all()
+        if not m.any():
+            continue
+        np.testing.assert_array_equal(by_ext[r].numpy()[m],
+                                      full[r].numpy()[m])
+        np.testing.assert_array_equal(mo[r].numpy()[m], full[r].numpy()[m])
+        pcnt, pmean, pcov = (np.asarray(v) for v in radius_moments_pallas(
+            jnp.asarray(pts[r]), jnp.asarray(m), 1.0))
+        np.testing.assert_array_equal(cnt[r][m], pcnt[m])
+        n = cnt[r][m].max()
+        x = np.abs(pts[r][m]).max()
+        tol_mean = 2 * n * U32 * x
+        tol_cov = 2 * n * U32 * x * x + 2 * x * tol_mean
+        np.testing.assert_allclose(mean[r][m], pmean[m], rtol=0,
+                                   atol=tol_mean)
+        np.testing.assert_allclose(cov[r][m], pcov[m], rtol=0, atol=tol_cov)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """On a CPU tensor the kernel wrapper raises rather than running."""
     pts = torch.zeros((1, 8, 3))
@@ -184,3 +320,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         stats_kernel.count_cuda(pts, pts, 0.25)
     with pytest.raises(ValueError):
         stats_kernel.moments_cuda(pts, pts, 0.25)
+    ext = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        nn_kernel.nn_cuda(pts, pts, ext, ext)
