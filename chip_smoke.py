@@ -5,15 +5,16 @@
 
 Builds the hand-written kernels of `mrg_slam_tpu_torch/csrc/` for sm_90a,
 holds each one against its plain PyTorch version on the card at the shapes
-of the front end's main path (with and without the rows' extents and
-masks, ragged rows included), then drives the front end (prefilter ->
-fused GICP odometry) at full width on bench.py's production world and
-checks its ATE against the JAX package's on the same frames. Any failed
-check raises. The last line of standard output is
-{"ok": true, "device": {...}}; the line before it lists every kernel with
-its launches, error and times (a kernel's "ms" is its device time per
-launch in a CUDA graph; plain and library times are one call between
-CUDA events).
+of the front end's main path (with and without the rows' masks, ragged
+rows included), then drives the front end (prefilter -> fused GICP
+odometry) at full width on bench.py's production world and checks its
+ATE against the JAX package's on the same frames. Any failed check
+raises. The last line of standard output is {"ok": true, "device":
+{...}}; the line before it lists every kernel with its launches, error
+and times: "ms", "plain_ms" and "library_ms" are one call between CUDA
+events (the wrapper's host time included, whenever the card waits for
+it), and "device_ms" is the kernel's device time per launch in a CUDA
+graph.
 
 Needs a CUDA card; without one it exits non-zero and prints no result.
 Imports nothing of JAX and nothing of the JAX package.
@@ -211,11 +212,11 @@ def uniform_input(torch, dev, n, rng):
     return (torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev))
 
 
-def check_nn(torch, nk, src, tgt_padded, name, *lanes):
-    """Bitwise on every lane, the fixed (inf, 0) of the lanes that take no
-    part included; `lanes` are nn_cuda's extents and masks."""
-    d_k, i_k = nk.nn_cuda(src, tgt_padded, *lanes)
-    d_p, i_p = nk.nn_plain(src, tgt_padded, *lanes)
+def check_nn(torch, nk, src, tgt, name, *masks):
+    """Bitwise on every lane, the fixed (inf, 0) of the masked source
+    lanes included; `masks` are nn_cuda's source and target masks."""
+    d_k, i_k = nk.nn_cuda(src, tgt, *masks)
+    d_p, i_p = nk.nn_plain(src, tgt, *masks)
     torch.cuda.synchronize()
     if not torch.equal(i_k, i_p):
         raise AssertionError(f"nn {name}: {(i_k != i_p).sum().item()} "
@@ -237,7 +238,7 @@ def check_count(torch, sk, pts, r2, name):
     return float((c_k - c_p).abs().max())
 
 
-def check_moments(torch, sk, pts, r2, name, ext=None, mask=None):
+def check_moments(torch, sk, pts, r2, name, mask=None):
     """Counts exact; mean and cov within the float32 summation bound.
 
     The kernel sums neighbours in index order, the plain version through
@@ -245,22 +246,19 @@ def check_moments(torch, sk, pts, r2, name, ext=None, mask=None):
     terms up to X differ by at most ~2 n u X (u = 2^-24), so
     mean <= 2 n u X and, through cov = M2/n - mean mean^T with its
     cancellation, cov <= 2 n u X^2 + 2 X (mean bound); X = max |coord|
-    over the real points, n = the largest neighbour count. With row
-    extents `ext` (and masks `mask`), the lanes that take no part must
-    hold zeros.
+    over the real points, n = the largest neighbour count. With masks,
+    the masked lanes must hold zeros.
     """
-    m_k = sk.moments_cuda(pts, pts, r2, ext, ext, mask, mask)
-    m_p = sk.moments_plain(pts, pts, r2, ext, ext, mask, mask)
+    m_k = sk.moments_cuda(pts, pts, r2, mask, mask)
+    m_p = sk.moments_plain(pts, pts, r2, mask, mask)
     torch.cuda.synchronize()
-    real = (pts.abs() < 1e5).all(-1)  # moments of pad lanes are unused
-    if ext is not None:
-        lanes = torch.arange(pts.shape[1], device=pts.device)
-        out = lanes[None, :] >= ext[:, None]
-        if mask is not None:
-            out = out | ~mask
-        if not (m_k[out] == 0).all():
-            raise AssertionError(f"moments {name}: lanes that take no part "
-                                 "are not zero")
+    if mask is None:
+        real = (pts.abs() < 1e5).all(-1)  # moments of pad lanes are unused
+    else:
+        real = mask
+        if not (m_k[~mask] == 0).all():
+            raise AssertionError(f"moments {name}: masked lanes are not "
+                                 "zero")
     c_k, mean_k, cov_k = sk.moments_to_mean_cov(m_k)
     c_p, mean_p, cov_p = sk.moments_to_mean_cov(m_p)
     if not torch.equal(c_k[real], c_p[real]):
@@ -278,30 +276,30 @@ def check_moments(torch, sk, pts, r2, name, ext=None, mask=None):
     return max(e_mean, e_cov), float(c_k[real].sum())
 
 
-# ragged rows for the extent checks: (name, source extents, target
-# extents, lanes, hole lanes); B = 3 rows that end at different lanes, a
-# row with no valid lane, holes, extents on no tile boundary
+# ragged rows for the mask checks: (name, where the source rows' valid
+# lanes end, the same for the targets, lanes, hole lanes); B = 3 rows that
+# end at different lanes, a row with no valid lane, holes, ends on no tile
+# boundary
 RAGGED = (("ragged rows", (997, 3, 0), (1, 640, 999), 1000, ()),
           ("holes", (700, 129, 257), (300, 513, 1), 800, (5, 128, 129, 255)))
 
 
-def ragged_rows(torch, dev, rng, exts, n, holes):
-    """Rows of n lanes ending at `exts`, `holes` masked, masked lanes at
-    PAD_VALUE; half of each row a dense cluster. -> (points, mask, row
-    extents)."""
+def ragged_rows(torch, dev, rng, ends, n, holes):
+    """Rows of n lanes whose valid lanes end at `ends`, `holes` masked;
+    half of each row a dense cluster. -> (points with the masked lanes at
+    PAD_VALUE, the same points unpadded, mask)."""
     from mrg_slam_tpu_torch.ops.cloud import pad_invalid
-    from mrg_slam_tpu_torch.ops.knn import row_extent
 
-    pts = rng.uniform(-45, 45, (len(exts), n, 3)).astype(np.float32)
+    pts = rng.uniform(-45, 45, (len(ends), n, 3)).astype(np.float32)
     pts[:, n // 2:] = pts[:, n // 2:] * 0.02 + 30.0
-    mask = np.arange(n)[None, :] < np.asarray(exts)[:, None]
+    mask = np.arange(n)[None, :] < np.asarray(ends)[:, None]
     mask[:, list(holes)] = False
-    for r, e in enumerate(exts):
+    for r, e in enumerate(ends):
         if e:
             mask[r, e - 1] = True
     mask = torch.from_numpy(mask).to(dev)
-    return (pad_invalid(torch.from_numpy(pts).to(dev), mask).contiguous(),
-            mask, row_extent(mask))
+    pts = torch.from_numpy(pts).to(dev)
+    return pad_invalid(pts, mask).contiguous(), pts, mask
 
 
 def launch_floor_ms(torch, native):
@@ -319,7 +317,7 @@ def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt):
     """Hold every kernel against its plain version; time all three.
 
     `block_mask` marks the real points of `block_pts` (frame 0 is the nn
-    target, frame 1 its source). nn and moments get the rows' extents, as
+    target, frame 1 its source). nn and moments get the rows' masks, as
     on the main path. The bounds count only the pairs of real points,
     which are all the main path needs: pad lanes' results are never
     read."""
@@ -327,7 +325,6 @@ def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt):
     from mrg_slam_tpu_torch.ops import nn_kernel as nk
     from mrg_slam_tpu_torch.ops import stats_kernel as sk
     from mrg_slam_tpu_torch.ops.cloud import pad_invalid
-    from mrg_slam_tpu_torch.ops.knn import row_extent
 
     rng = np.random.default_rng(0)
     u_pts, u_mask = uniform_input(torch, dev, FILTERED, rng)
@@ -341,34 +338,31 @@ def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt):
     if not (torch.isinf(d_e).all() and (i_e == 0).all()):
         raise AssertionError("nn: an all-masked target must give inf, 0")
     r2c, r2m = sk.radius_sq(0.5), sk.radius_sq(0.6)
-    for name, s_exts, t_exts, n_lanes, holes in RAGGED:
-        src_r, sm, se = ragged_rows(torch, dev, rng, s_exts, n_lanes, holes)
-        tgt_r, tm, te = ragged_rows(torch, dev, rng, t_exts, n_lanes, holes)
-        check_nn(torch, nk, src_r, tgt_r, name, se, te)
-        check_nn(torch, nk, src_r, tgt_r, name + ", masks", se, te, sm, tm)
-        check_moments(torch, sk, src_r, r2m, name, se)
-        check_moments(torch, sk, src_r, r2m, name + ", masks", se, sm)
-    # the main path's lanes: each frame's mask and its extent (the last
-    # real lane plus one)
-    ext_blk = row_extent(block_mask)
-    nn_lanes = (ext_blk[1:2], ext_blk[0:1], block_mask[1:2].contiguous(),
-                block_mask[0:1].contiguous())
+    for name, s_ends, t_ends, n_lanes, holes in RAGGED:
+        src_p, src_r, sm = ragged_rows(torch, dev, rng, s_ends, n_lanes,
+                                       holes)
+        tgt_p, tgt_r, tm = ragged_rows(torch, dev, rng, t_ends, n_lanes,
+                                       holes)
+        check_nn(torch, nk, src_p, tgt_p, name, sm, tm)
+        check_nn(torch, nk, src_r, tgt_r, name + ", unpadded", sm, tm)
+        check_moments(torch, sk, src_p, r2m, name, sm)
+        check_moments(torch, sk, src_r, r2m, name + ", unpadded", sm)
+    # the main path's lanes: each frame's mask
+    nn_masks = (block_mask[1:2].contiguous(), block_mask[0:1].contiguous())
     check_nn(torch, nk, nn_src, nn_tgt, "real, every lane")
-    check_nn(torch, nk, nn_src, nn_tgt, "real, extents", *nn_lanes[:2])
-    err_nn = check_nn(torch, nk, nn_src, nn_tgt, "real", *nn_lanes)
+    err_nn = check_nn(torch, nk, nn_src, nn_tgt, "real", *nn_masks)
     check_count(torch, sk, u_pad, r2c, "uniform")
     err_c = check_count(torch, sk, block_pts, r2c, "real block")
     check_moments(torch, sk, u_pad, r2m, "uniform")
     check_moments(torch, sk, block_pts, r2m, "real block, every lane")
     err_m, inside = check_moments(torch, sk, block_pts, r2m, "real block",
-                                  ext_blk, block_mask)
+                                  block_mask)
     log("# kernels == plain versions on the card (nn bitwise on every lane, "
         "counts exact, moments within the f32 summation bound; with and "
-        "without row extents and masks)")
+        "without masks)")
 
     # the library yardsticks compute the same function: pairs of real
     # points (their lanes found on the host here, outside the path)
-    exts = ext_blk.tolist()
     real = [m.nonzero().squeeze(1) for m in block_mask]
     feats = torch.cat([torch.ones_like(block_pts[..., :1]), block_pts,
                        *(block_pts[..., a:a + 1] * block_pts[..., b:b + 1]
@@ -401,15 +395,13 @@ def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt):
     pairs_nn = float(n_real[1] * n_real[0])
     pairs_blk = float((n_real * n_real).sum())
     log(f"# real points per frame {int(n_real.min())}-{int(n_real.max())} "
-        f"of {n}, extents {min(exts)}-{max(exts)}; in-radius (0.6 m) real "
-        f"pairs {inside:.0f}")
+        f"of {n}; in-radius (0.6 m) real pairs {inside:.0f}")
     floor_ms = launch_floor_ms(torch, native)
-    blk_lanes = (ext_blk, ext_blk, block_mask, block_mask)
     rows = []
     for name, src, fk, fp, flib, pairs, opp, extra, out_b, repl in (
             ("nn", "mrg_slam_tpu_torch/csrc/nn.cu",
-             lambda: nk.nn_cuda(nn_src, nn_tgt, *nn_lanes),
-             lambda: nk.nn_plain(nn_src, nn_tgt, *nn_lanes), lib_nn,
+             lambda: nk.nn_cuda(nn_src, nn_tgt, *nn_masks),
+             lambda: nk.nn_plain(nn_src, nn_tgt, *nn_masks), lib_nn,
              pairs_nn, 9, 0, nn_src.shape[1] * 12,
              "mrg_slam_tpu/ops/pallas_nn.py:48"),
             ("count", "mrg_slam_tpu_torch/csrc/radius_stats.cu",
@@ -418,30 +410,32 @@ def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt):
              pairs_blk, 11, 0, b * n * 4,
              "mrg_slam_tpu/ops/pallas_stats.py:34"),
             ("moments", "mrg_slam_tpu_torch/csrc/radius_stats.cu",
-             lambda: sk.moments_cuda(block_pts, block_pts, r2m, *blk_lanes),
-             lambda: sk.moments_plain(block_pts, block_pts, r2m,
-                                      *blk_lanes),
+             lambda: sk.moments_cuda(block_pts, block_pts, r2m, block_mask,
+                                     block_mask),
+             lambda: sk.moments_plain(block_pts, block_pts, r2m, block_mask,
+                                      block_mask),
              lib_moments, pairs_blk, 9, 16 * inside, b * n * 40,
              "mrg_slam_tpu/ops/pallas_stats.py:93")):
         in_b = (nn_src.numel() + nn_tgt.numel()) * 4 if name == "nn" \
             else block_pts.numel() * 4
         bms, by = bound(pairs, opp, extra, in_b + out_b)
-        ms = graph_ms(torch, fk)
-        call_ms = cuda_ms(torch, fk)
+        ms = cuda_ms(torch, fk)
+        device_ms = graph_ms(torch, fk)
         plain_ms = cuda_ms(torch, fp)
         lib_ms = cuda_ms(torch, flib)
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
                          launches=None,
                          max_abs_err={"nn": err_nn, "count": err_c,
                                       "moments": err_m}[name],
-                         ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                         bound_by=by, library_ms=lib_ms))
+                         ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, library_ms=lib_ms))
         # the launch floor: no launch, however small, takes less
-        log(f"# {name}: kernel {ms:.4f} ms a launch in a CUDA graph "
-            f"({call_ms:.4f} ms around one call), plain {plain_ms:.4f} ms, "
-            f"library {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}); launch "
-            f"floor: an empty kernel takes {floor_ms[0]:.4f} ms around one "
-            f"call, {floor_ms[1]:.4f} ms a launch in a CUDA graph")
+        log(f"# {name}: kernel {ms:.4f} ms around one call "
+            f"({device_ms:.4f} ms a launch in a CUDA graph), plain "
+            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}); launch floor: an empty kernel takes {floor_ms[0]:.4f} "
+            f"ms around one call, {floor_ms[1]:.4f} ms a launch in a CUDA "
+            "graph")
     return rows
 
 
@@ -452,13 +446,12 @@ def sync_cost(torch, odo, src, tgt):
     from mrg_slam_tpu_torch.utils import se3
 
     params = odo.registration
-
-    st = reg.stage_consts(src, tgt)
+    ridge = reg.hessian_ridge(src.points.device)
 
     def run(read_flag):
         pose = se3.pose_identity(src.points.device)
         for _ in range(12):
-            xi, *_ = reg._gn_step(params, src, tgt, pose, st)
+            xi, *_ = reg._gn_step(params, src, tgt, pose, ridge)
             pose = se3.pose_retract(pose, xi)
             if read_flag:
                 bool(torch.linalg.vector_norm(xi) < 0)

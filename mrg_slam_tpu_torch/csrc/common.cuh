@@ -7,13 +7,12 @@
 // shared memory as structure-of-arrays f32, every thread reading the same
 // target at the same time (a broadcast, no bank conflicts).
 //
-// nn_kernel and moments_kernel take part only the lanes that are valid:
-// below the row's real-point extent (row_extent) and set in the row's mask
-// (lane_valid). A block compacts its valid sources (stage_sources) and, a
-// window at a time, the valid targets it sweeps (stage_valid) into shared
-// memory as float4 (x, y, z, lane), so pads and masked lanes cost neither
-// a thread nor a pair, and one 16-byte broadcast load serves every source
-// a thread owns.
+// nn_kernel and moments_kernel take part only the lanes that are set in
+// the row's mask (lane_valid). A block compacts its valid sources
+// (stage_sources) and, a window at a time, the valid targets it sweeps
+// (stage_valid) into shared memory as float4 (x, y, z, lane), so masked
+// lanes cost neither a thread nor a pair, and one 16-byte broadcast load
+// serves every source a thread owns.
 //
 // Every kernel writes each output once, without atomics, so a launch is
 // deterministic. gridDim.y runs over a batch of independent (source,
@@ -58,18 +57,11 @@ inline dim3 grid_for(int batch, int n) {
   return dim3((n + kThreads - 1) / kThreads, batch);
 }
 
-// Extent of row b: (index of its last valid lane) + 1, clamped to
-// [0, lanes]; a null array means every lane.
-__device__ __forceinline__ int row_extent(const int* __restrict__ ext,
-                                          size_t b, int lanes) {
-  return ext == nullptr ? lanes : min(max(ext[b], 0), lanes);
-}
-
-// Whether lane i of a row takes part: below the row's extent and marked
-// valid in its mask row (a null mask marks every lane).
+// Whether lane i of a row of n lanes takes part: i < n and marked valid
+// in the mask row (a null mask marks every lane).
 __device__ __forceinline__ bool lane_valid(const unsigned char* mask, int i,
-                                           int ext) {
-  return i < ext && (mask == nullptr || mask[i] != 0);
+                                           int n) {
+  return i < n && (mask == nullptr || mask[i] != 0);
 }
 
 // Exclusive prefix sum of v over the block (blockDim.x a multiple of 32,
@@ -107,9 +99,9 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* tmp,
 // chunk's offset plus its rank in the ballot. `tmp` holds at least
 // ceil(len / 32) + 1 ints. Every thread must call it.
 __device__ __forceinline__ int stage_valid(const float* __restrict__ tgt,
-                                           const unsigned char* mask,
-                                           int ext, int base, int len,
-                                           float4* t, int* tmp) {
+                                           const unsigned char* mask, int m,
+                                           int base, int len, float4* t,
+                                           int* tmp) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
@@ -119,7 +111,7 @@ __device__ __forceinline__ int stage_valid(const float* __restrict__ tgt,
   for (int c = warp; c < chunks; c += warps) {
     const int i = base + 32 * c + lane;
     const unsigned v = __ballot_sync(0xffffffffu,
-                                     i < end && lane_valid(mask, i, ext));
+                                     i < end && lane_valid(mask, i, m));
     if (lane == 0) tmp[c] = __popc(v);
   }
   __syncthreads();
@@ -144,7 +136,7 @@ __device__ __forceinline__ int stage_valid(const float* __restrict__ tgt,
   for (int c = warp; c < chunks; c += warps) {
     const int i = base + 32 * c + lane;
     const bool in = i < end;
-    const bool ok = in && lane_valid(mask, i, ext);
+    const bool ok = in && lane_valid(mask, i, m);
     const unsigned v = __ballot_sync(0xffffffffu, ok);
     float x = 0.f, y = 0.f, z = 0.f;
     if (in) {  // loaded whether valid or not, so loads can overlap
@@ -164,23 +156,22 @@ __device__ __forceinline__ int stage_valid(const float* __restrict__ tgt,
 }
 
 // Stage the valid sources among the kPer * blockDim.x lanes from `first`
-// into s[0, count) as (x, y, z, lane bits) and return count; thread k
-// offers lanes first + kPer * k + u, u < kPer.
+// of an (N, 3) AoS cloud into s[0, count) as (x, y, z, lane bits) and
+// return count; thread k offers lanes first + kPer * k + u, u < kPer.
 template <int kPer>
 __device__ __forceinline__ int stage_sources(const float* __restrict__ src,
-                                             const unsigned char* mask,
-                                             int ext, int first, float4* s,
-                                             int* tmp) {
+                                             const unsigned char* mask, int n,
+                                             int first, float4* s, int* tmp) {
   const int lane0 = first + kPer * static_cast<int>(threadIdx.x);
   int mine = 0;
 #pragma unroll
-  for (int u = 0; u < kPer; ++u) mine += lane_valid(mask, lane0 + u, ext);
+  for (int u = 0; u < kPer; ++u) mine += lane_valid(mask, lane0 + u, n);
   int count;
   int at = block_exclusive_scan(mine, tmp, count);
 #pragma unroll
   for (int u = 0; u < kPer; ++u) {
     const int i = lane0 + u;
-    if (lane_valid(mask, i, ext)) {
+    if (lane_valid(mask, i, n)) {
       const float* p = src + 3 * static_cast<size_t>(i);
       s[at++] = make_float4(p[0], p[1], p[2], __int_as_float(i));
     }

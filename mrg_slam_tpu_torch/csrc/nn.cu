@@ -18,11 +18,11 @@
 // fills every lane and the RADIUS filter masks about half of them in
 // place. So the design is about filling 132 SMs with little work and
 // spending it only on real pairs:
-//  - valid lanes only: a lane takes part when it lies below its row's
-//    extent (src_ext, tgt_ext; null: every lane) and its mask byte is set
+//  - valid lanes only: a lane takes part when its mask byte is set
 //    (src_mask, tgt_mask; null: every lane). A block compacts its valid
 //    sources and the valid targets of its share into shared memory
-//    (common.cuh), so masked lanes cost neither a thread nor a pair;
+//    (common.cuh), so masked lanes cost neither a thread nor a pair, and a
+//    cluster whose source lanes are all masked leaves at once;
 //  - occupancy: a cluster owns 256 source lanes and splits the targets 8
 //    ways, so 8192 lanes give 256 blocks of 4 warps, ~2 per SM. On an H100
 //    this beat 128-lane clusters (512 blocks of 2 warps), 4-way splits and
@@ -103,9 +103,7 @@ __device__ __forceinline__ void sweep_upto(int most, const float4* tile,
 
 __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
     nn_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
-              int n, int m, const int* __restrict__ src_ext,
-              const int* __restrict__ tgt_ext,
-              const unsigned char* __restrict__ src_mask,
+              int n, int m, const unsigned char* __restrict__ src_mask,
               const unsigned char* __restrict__ tgt_mask,
               float* __restrict__ d2_out, long long* __restrict__ idx_out) {
   __shared__ float4 tile[kTile];
@@ -117,8 +115,6 @@ __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
   const int rank = static_cast<int>(cluster.block_rank());
   const size_t b = blockIdx.y;
   const int first = (blockIdx.x / kSplit) * kTileSrc;
-  const int s_ext = mrg::row_extent(src_ext, b, n);
-  const int t_ext = mrg::row_extent(tgt_ext, b, m);
   src += b * n * 3;
   tgt += b * m * 3;
   if (src_mask != nullptr) src_mask += b * n;
@@ -129,24 +125,20 @@ __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
   // kCombine) of the tile that do not take part
   const int own = first + rank * kCombine + threadIdx.x;
   const bool own_fixed = threadIdx.x < kCombine && own < n &&
-                         !mrg::lane_valid(src_mask, own, s_ext);
+                         !mrg::lane_valid(src_mask, own, n);
   auto write_fixed = [&]() {
     if (own_fixed) {
       d2_out[own] = INFINITY;
       idx_out[own] = 0;
     }
   };
-  if (first >= s_ext) {
-    // the whole cluster lies past the source extent: no block reads
-    // another's shared memory, so each writes its share and leaves
-    write_fixed();
-    return;
-  }
   // every block of the cluster compacts the same valid sources in the
   // same order, so a slot names the same source in all of them
-  const int n_src = mrg::stage_sources<kPerThread>(src, src_mask, s_ext,
-                                                   first, srcs, scan_tmp);
-  if (n_src == 0) {  // the same in every block of the cluster
+  const int n_src = mrg::stage_sources<kPerThread>(src, src_mask, n, first,
+                                                   srcs, scan_tmp);
+  if (n_src == 0) {
+    // the same in every block of the cluster: no block reads another's
+    // shared memory, so each writes its share and leaves
     write_fixed();
     return;
   }
@@ -163,16 +155,16 @@ __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
   const int ahead = n_src - static_cast<int>(threadIdx.x);
   const int held = min(kPerThread, (ahead + kThreads - 1) / kThreads);
   const int most = __reduce_max_sync(0xffffffffu, held);
-  // this block's share of the target lanes [0, t_ext): contiguous,
-  // ascending in rank
-  const int share = (t_ext + kSplit - 1) / kSplit;
-  const int lo = min(rank * share, t_ext);
-  const int hi = min(lo + share, t_ext);
+  // this block's share of the target lanes [0, m): contiguous, ascending
+  // in rank
+  const int share = (m + kSplit - 1) / kSplit;
+  const int lo = min(rank * share, m);
+  const int hi = min(lo + share, m);
   for (int base = lo; base < hi; base += kTile) {
     const int len = min(kTile, hi - base);
     __syncthreads();  // the previous stage is fully read
-    const int k_tgt = mrg::stage_valid(tgt, tgt_mask, t_ext, base, len,
-                                       tile, scan_tmp);
+    const int k_tgt =
+        mrg::stage_valid(tgt, tgt_mask, m, base, len, tile, scan_tmp);
     sweep_upto<kPerThread>(most, tile, k_tgt, s, best, best_j);
   }
 #pragma unroll
@@ -205,18 +197,17 @@ __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
 }  // namespace
 
 // src (B, N, 3) and tgt (B, M, 3) contiguous f32 on the device, M >= 1;
-// src_ext and tgt_ext (B,) int32 row extents, src_mask (B, N) and
-// tgt_mask (B, M) bool, all on the device, each null for every lane;
+// src_mask (B, N) and tgt_mask (B, M) bool on the device, each null for
+// every lane;
 // writes d2 (B, N) f32 and idx (B, N) int64. Returns cudaGetLastError().
 extern "C" int mrg_nn(const float* src, const float* tgt, int batch, int n,
-                      int m, const int* src_ext, const int* tgt_ext,
-                      const unsigned char* src_mask,
+                      int m, const unsigned char* src_mask,
                       const unsigned char* tgt_mask, float* d2,
                       long long* idx, void* stream) {
   if (batch > 0 && n > 0) {
     const dim3 grid(kSplit * ((n + kTileSrc - 1) / kTileSrc), batch);
     nn_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        src, tgt, n, m, src_ext, tgt_ext, src_mask, tgt_mask, d2, idx);
+        src, tgt, n, m, src_mask, tgt_mask, d2, idx);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,10 +20,10 @@
 //
 // count_kernel keeps the first design: one thread per source, every lane
 // swept, SoA tiles (common.cuh). moments_kernel takes part only the valid
-// lanes (below the row's extent and set in its mask; null arrays: every
-// lane): a block compacts its valid sources and, a window at a time, the
-// valid targets into shared memory as float4 (common.cuh), and lanes that
-// do not take part get zeros. About half of a frame's 8192 lanes are real,
+// lanes (set in the row's mask; a null mask: every lane): a block compacts
+// its valid sources and, a window at a time, the valid targets into shared
+// memory as float4 (common.cuh), and lanes that do not take part get
+// zeros. About half of a frame's 8192 lanes are real,
 // spread over the row, so this drops ~3/4 of the pairs, and with them the
 // pad-by-pad pairs (d2 = 0) that took the accumulate branch. A thread
 // holds 1-2 sources, and one broadcast LDS.128 serves both. At B = 32 the
@@ -31,7 +31,7 @@
 // H100 256-thread blocks beat 128 (fewer blocks stage the same targets)
 // and 4 source slots per thread. Each source still sweeps its targets in
 // ascending order in one thread, so the moments of a valid lane are the
-// first design's, bit for bit. ptxas (sm_90a): moments_kernel 58
+// first design's, bit for bit. ptxas (sm_90a): moments_kernel 48
 // registers, 41220 bytes of shared memory; count_kernel 32 registers,
 // 24576 bytes; no spills.
 //
@@ -135,8 +135,6 @@ __device__ __forceinline__ void accumulate_upto(int most, const float4* tile,
 __global__ void __launch_bounds__(kMoThreads)
     moments_kernel(const float* __restrict__ src,
                    const float* __restrict__ tgt, int n, int m, float r2,
-                   const int* __restrict__ src_ext,
-                   const int* __restrict__ tgt_ext,
                    const unsigned char* __restrict__ src_mask,
                    const unsigned char* __restrict__ tgt_mask,
                    float* __restrict__ out) {
@@ -145,8 +143,6 @@ __global__ void __launch_bounds__(kMoThreads)
   __shared__ int scan_tmp[kMoTile / 32 + 1];  // the staging scans
   const size_t b = blockIdx.y;
   const int first = blockIdx.x * kMoTileSrc;
-  const int s_ext = mrg::row_extent(src_ext, b, n);
-  const int t_ext = mrg::row_extent(tgt_ext, b, m);
   src += b * n * 3;
   tgt += b * m * 3;
   if (src_mask != nullptr) src_mask += b * n;
@@ -156,15 +152,14 @@ __global__ void __launch_bounds__(kMoThreads)
 #pragma unroll
   for (int u = 0; u < kMoPerThread; ++u) {
     const int i = first + threadIdx.x + u * kMoThreads;
-    if (i < n && !mrg::lane_valid(src_mask, i, s_ext)) {
+    if (i < n && !mrg::lane_valid(src_mask, i, n)) {
 #pragma unroll
       for (int l = 0; l < kMomentLanes; ++l) {
         out[static_cast<size_t>(i) * kMomentLanes + l] = 0.f;
       }
     }
   }
-  if (first >= s_ext) return;
-  const int n_src = mrg::stage_sources<kMoPerThread>(src, src_mask, s_ext,
+  const int n_src = mrg::stage_sources<kMoPerThread>(src, src_mask, n,
                                                      first, srcs, scan_tmp);
   if (n_src == 0) return;
   float4 s[kMoPerThread];
@@ -177,11 +172,11 @@ __global__ void __launch_bounds__(kMoThreads)
   const int ahead = n_src - static_cast<int>(threadIdx.x);
   const int held = min(kMoPerThread, (ahead + kMoThreads - 1) / kMoThreads);
   const int most = __reduce_max_sync(0xffffffffu, held);
-  for (int base = 0; base < t_ext; base += kMoTile) {
-    const int len = min(kMoTile, t_ext - base);
+  for (int base = 0; base < m; base += kMoTile) {
+    const int len = min(kMoTile, m - base);
     __syncthreads();  // the previous stage is fully read
-    const int k_tgt = mrg::stage_valid(tgt, tgt_mask, t_ext, base, len,
-                                       tile, scan_tmp);
+    const int k_tgt =
+        mrg::stage_valid(tgt, tgt_mask, m, base, len, tile, scan_tmp);
     accumulate_upto<kMoPerThread>(most, tile, k_tgt, s, r2, acc);
   }
 #pragma unroll
@@ -199,9 +194,9 @@ __global__ void __launch_bounds__(kMoThreads)
 }  // namespace
 
 // points (B, N, 3) sources and (B, M, 3) targets, contiguous f32 on the
-// device; r2 = radius^2 rounded to f32; for moments, src_ext and tgt_ext
-// (B,) int32 row extents, src_mask (B, N) and tgt_mask (B, M) bool, all on
-// the device, each null for every lane. Each returns cudaGetLastError().
+// device; r2 = radius^2 rounded to f32; for moments, src_mask (B, N) and
+// tgt_mask (B, M) bool on the device, each null for every lane. Each
+// returns cudaGetLastError().
 extern "C" int mrg_radius_count(const float* src, const float* tgt, int batch,
                                 int n, int m, float r2, int* out,
                                 void* stream) {
@@ -215,14 +210,13 @@ extern "C" int mrg_radius_count(const float* src, const float* tgt, int batch,
 
 extern "C" int mrg_radius_moments(const float* src, const float* tgt,
                                   int batch, int n, int m, float r2,
-                                  const int* src_ext, const int* tgt_ext,
                                   const unsigned char* src_mask,
                                   const unsigned char* tgt_mask, float* out,
                                   void* stream) {
   if (batch > 0 && n > 0) {
     const dim3 grid((n + kMoTileSrc - 1) / kMoTileSrc, batch);
     moments_kernel<<<grid, kMoThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        src, tgt, n, m, r2, src_ext, tgt_ext, src_mask, tgt_mask, out);
+        src, tgt, n, m, r2, src_mask, tgt_mask, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,7 +16,7 @@ import torch
 
 from . import stats_kernel
 from .cloud import PointCloud
-from .knn import _as_batch, _mask_rows, row_extent
+from .knn import _as_batch, _mask_rows
 from .sym3eig import smallest_eigvec3
 
 
@@ -48,14 +48,12 @@ def estimate_covariances_radius(cloud: PointCloud, radius: float = 1.0
     points, get I (covariance.py:118-121 of the reference).
     """
     p, lead = _as_batch(cloud.points)
-    m = _mask_rows(cloud.mask)
-    ext = row_extent(m)
-    lanes = (ext, ext, m, m)  # masked lanes take no part
+    m = _mask_rows(cloud.mask)  # masked lanes take no part
     r2 = stats_kernel.radius_sq(radius)
     if p.device.type == "cpu":
-        mo = stats_kernel.moments_plain(p, p, r2, *lanes)
+        mo = stats_kernel.moments_plain(p, p, r2, m, m)
     else:
-        mo = stats_kernel.moments_cuda(p, p, r2, *lanes)
+        mo = stats_kernel.moments_cuda(p, p, r2, m, m)
     mo = mo.reshape(lead + mo.shape[-2:])
     cnt, _, cov = stats_kernel.moments_to_mean_cov(mo)
     cov = regularize_covs_plane(cov)

@@ -6,11 +6,8 @@ which launches or raises. Distances are exact f32 coordinate differences on
 both (not the |s|^2 + |t|^2 - 2 s.t expansion), so CPU and card agree.
 
 Every function takes clouds with optional leading batch dims: (..., N, 3)
-points and (..., N) masks. The nn kernel reads the masks and each row's
-real-point extent (`row_extent`) on the device, so masked lanes and lanes
-past a row's last valid point cost nothing; a caller that queries the same
-masks many times (the Gauss-Newton loop) computes the extents once and
-passes them in.
+points and (..., N) masks. The nn kernel reads the masks on the device,
+so masked lanes cost nothing.
 """
 
 from __future__ import annotations
@@ -28,24 +25,6 @@ def _as_batch(x: torch.Tensor) -> Tuple[torch.Tensor, tuple]:
     return x.reshape((-1,) + x.shape[-2:]).contiguous(), lead
 
 
-def row_extent(mask: torch.Tensor) -> torch.Tensor:
-    """(..., N) bool -> (...,) int32: the index of each row's last valid
-    lane plus one, 0 for a row without one. Exact for any mask, prefix or
-    not: every lane past it is masked. Computed on the mask's device and
-    never read on the host (that would sync the stream)."""
-    if mask.shape[-1] == 0:
-        return torch.zeros(mask.shape[:-1], dtype=torch.int32,
-                           device=mask.device)
-    lanes = torch.arange(1, mask.shape[-1] + 1, dtype=torch.int32,
-                         device=mask.device)
-    return (lanes * mask).amax(-1)
-
-
-def _ext_rows(ext: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """(...,) row extents -> (B,), as _as_batch lays out the rows."""
-    return None if ext is None else ext.reshape(-1).contiguous()
-
-
 def _mask_rows(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """(..., N) mask -> (B, N), as _as_batch lays out the rows."""
     return None if mask is None \
@@ -54,9 +33,7 @@ def _mask_rows(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def nearest_neighbor(src: torch.Tensor, tgt: torch.Tensor,
                      tgt_mask: torch.Tensor,
-                     src_mask: Optional[torch.Tensor] = None,
-                     src_ext: Optional[torch.Tensor] = None,
-                     tgt_ext: Optional[torch.Tensor] = None
+                     src_mask: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """1-NN of every `src` point in the masked `tgt` cloud.
 
@@ -64,35 +41,24 @@ def nearest_neighbor(src: torch.Tensor, tgt: torch.Tensor,
     lowest index; with no valid target the distance is +inf and the index
     0 (pallas_nn.py semantics). `src_mask` marks the source lanes the
     caller reads (None: all); the others get (inf, 0) (nn_kernel.py).
-    `src_ext` and `tgt_ext` are `row_extent(src_mask)` and
-    `row_extent(tgt_mask)`, for a caller that has them already.
     """
     s, lead = _as_batch(src)
     t, _ = _as_batch(tgt)
-    if tgt_ext is None:
-        tgt_ext = row_extent(tgt_mask)
-    if src_ext is None and src_mask is not None:
-        src_ext = row_extent(src_mask)
-    lanes = (_ext_rows(src_ext), _ext_rows(tgt_ext), _mask_rows(src_mask),
-             _mask_rows(tgt_mask))
+    masks = (_mask_rows(src_mask), _mask_rows(tgt_mask))
     if s.device.type == "cpu":
-        d2, idx = nn_kernel.nn_plain(s, t, *lanes)
+        d2, idx = nn_kernel.nn_plain(s, t, *masks)
     else:
-        d2, idx = nn_kernel.nn_cuda(s, t, *lanes)
+        d2, idx = nn_kernel.nn_cuda(s, t, *masks)
     n = src.shape[-2]
     return d2.reshape(lead + (n,)), idx.reshape(lead + (n,))
 
 
 def nn_within(src: torch.Tensor, src_mask: torch.Tensor, tgt: torch.Tensor,
-              tgt_mask: torch.Tensor, max_dist: float,
-              src_ext: Optional[torch.Tensor] = None,
-              tgt_ext: Optional[torch.Tensor] = None
+              tgt_mask: torch.Tensor, max_dist: float
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """1-NN with the correspondence gate of GICP/ICP: returns (sq_dists,
-    indices, valid), valid = source valid and d2 <= max_dist^2. The
-    extents are as in `nearest_neighbor`."""
-    d2, idx = nearest_neighbor(src, tgt, tgt_mask, src_mask, src_ext,
-                               tgt_ext)
+    indices, valid), valid = source valid and d2 <= max_dist^2."""
+    d2, idx = nearest_neighbor(src, tgt, tgt_mask, src_mask)
     valid = src_mask & (d2 <= stats_kernel.radius_sq(max_dist))
     return d2, idx, valid
 

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 
@@ -31,9 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # or ctypes would pass them as 32-bit ints
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "mrg_nn": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    "mrg_nn": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
     "mrg_radius_count": (_P, _P, _I, _I, _I, _F, _P, _P),
-    "mrg_radius_moments": (_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
+    "mrg_radius_moments": (_P, _P, _I, _I, _I, _F, _P, _P, _P, _P),
     "mrg_empty": (_P,),
 }
 
@@ -119,24 +119,18 @@ def check_cuda_f32(*tensors: torch.Tensor) -> None:
             raise ValueError("kernel input must be contiguous")
 
 
-def lane_ptrs(device: torch.device, batch: int, lanes: int,
-              ext: Optional[torch.Tensor],
-              mask: Optional[torch.Tensor]) -> Tuple[Optional[int], ...]:
-    """Device pointers of a (batch,) int32 row-extent array and a
-    (batch, lanes) bool mask; None (a null pointer: every lane) for None."""
-    out = []
-    for t, dtype, shape in ((ext, torch.int32, (batch,)),
-                            (mask, torch.bool, (batch, lanes))):
-        if t is None:
-            out.append(None)
-            continue
-        if t.device != device or t.dtype != dtype \
-                or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"expected contiguous {dtype} {shape} on "
-                             f"{device}, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
-        out.append(t.data_ptr())
-    return tuple(out)
+def mask_ptr(device: torch.device, batch: int, lanes: int,
+             mask: Optional[torch.Tensor]) -> Optional[int]:
+    """Device pointer of a (batch, lanes) bool mask; None (a null pointer:
+    every lane) for None."""
+    if mask is None:
+        return None
+    if mask.device != device or mask.dtype != torch.bool \
+            or mask.shape != (batch, lanes) or not mask.is_contiguous():
+        raise ValueError(f"expected a contiguous bool mask {(batch, lanes)} "
+                         f"on {device}, got {mask.dtype} "
+                         f"{tuple(mask.shape)} on {mask.device}")
+    return mask.data_ptr()
 
 
 def check_rc(rc: int, name: str) -> None:

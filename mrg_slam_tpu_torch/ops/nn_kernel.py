@@ -9,13 +9,11 @@ reaching it. Masked targets must sit at PAD_VALUE, unless the caller
 leaves them out (below). `ops.knn.nearest_neighbor` dispatches on the
 device.
 
-Lanes that take part. `src_ext` and `tgt_ext` are (B,) int32 row extents
-(`ops.knn.row_extent`: the index of the row's last valid lane plus one),
-`src_mask` (B, N) and `tgt_mask` (B, M) bool masks, all on the clouds'
-device; None means every lane. A lane takes part when it lies below its
-row's extent and its mask is set. Only targets that take part are swept,
-and a source lane that does not gets the fixed result (inf, 0) without
-being computed. On a source lane that takes part the result is the Pallas
+Lanes that take part. `src_mask` (B, N) and `tgt_mask` (B, M) are bool
+masks on the clouds' device; None means every lane. A lane takes part
+when its mask is set. Only targets that take part are swept, and a
+source lane that does not gets the fixed result (inf, 0) without being
+computed. On a source lane that takes part the result is the Pallas
 kernel's, bit for bit (it sees the other targets at PAD_VALUE, where they
 never win). On a masked-out source lane it may differ from the JAX
 package's, and no caller reads it:
@@ -48,21 +46,19 @@ def _shapes(src: torch.Tensor, tgt: torch.Tensor) -> Tuple[int, int, int]:
 
 
 def nn_cuda(src: torch.Tensor, tgt: torch.Tensor,
-            src_ext: Optional[torch.Tensor] = None,
-            tgt_ext: Optional[torch.Tensor] = None,
             src_mask: Optional[torch.Tensor] = None,
             tgt_mask: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch csrc/nn.cu:nn_kernel on CUDA tensors."""
     b, n, m = _shapes(src, tgt)
     native.check_cuda_f32(src, tgt)
-    se, sm = native.lane_ptrs(src.device, b, n, src_ext, src_mask)
-    te, tm = native.lane_ptrs(src.device, b, m, tgt_ext, tgt_mask)
+    sm = native.mask_ptr(src.device, b, n, src_mask)
+    tm = native.mask_ptr(src.device, b, m, tgt_mask)
     fn = native.library("nn").mrg_nn
     d2 = torch.empty((b, n), dtype=torch.float32, device=src.device)
     idx = torch.empty((b, n), dtype=torch.int64, device=src.device)
     with torch.cuda.device(src.device):
-        rc = fn(src.data_ptr(), tgt.data_ptr(), b, n, m, se, te, sm, tm,
+        rc = fn(src.data_ptr(), tgt.data_ptr(), b, n, m, sm, tm,
                 d2.data_ptr(), idx.data_ptr(), native.stream_ptr(src.device))
     native.check_rc(rc, "nn")
     nn_cuda.launches += 1
@@ -72,22 +68,7 @@ def nn_cuda(src: torch.Tensor, tgt: torch.Tensor,
 nn_cuda.launches = 0
 
 
-def left_out(ext: Optional[torch.Tensor], mask: Optional[torch.Tensor],
-             b: int, lanes: int, device: torch.device
-             ) -> Optional[torch.Tensor]:
-    """(B, lanes) bool, True at the lanes that take no part: at or past
-    the row's extent, or masked out; None when both are None."""
-    out = None
-    if ext is not None:
-        out = torch.arange(lanes, device=device) >= ext.reshape(b, 1)
-    if mask is not None:
-        out = ~mask if out is None else out | ~mask
-    return out
-
-
 def nn_plain(src: torch.Tensor, tgt: torch.Tensor,
-             src_ext: Optional[torch.Tensor] = None,
-             tgt_ext: Optional[torch.Tensor] = None,
              src_mask: Optional[torch.Tensor] = None,
              tgt_mask: Optional[torch.Tensor] = None, chunk: int = 1024
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -101,7 +82,6 @@ def nn_plain(src: torch.Tensor, tgt: torch.Tensor,
     b, n, m = _shapes(src, tgt)
     tx, ty, tz = (tgt[..., k][:, None, :] for k in range(3))  # (B,1,M)
     cols = torch.arange(m, device=src.device)
-    t_past = left_out(tgt_ext, tgt_mask, b, m, src.device)
     d2s, idxs = [], []
     for s in range(0, n, chunk):
         p = src[:, s:s + chunk]
@@ -109,8 +89,8 @@ def nn_plain(src: torch.Tensor, tgt: torch.Tensor,
         dy = p[..., 1:2] - ty
         dz = p[..., 2:3] - tz
         d = dx * dx + dy * dy + dz * dz  # (B, C, M)
-        if t_past is not None:
-            d = d.masked_fill(t_past[:, None, :], float("inf"))
+        if tgt_mask is not None:
+            d = d.masked_fill(~tgt_mask[:, None, :], float("inf"))
         dmin = d.min(dim=-1).values
         # lowest index among equal minima (pallas_nn.py:57-60)
         idxs.append(torch.where(d == dmin[..., None], cols, m).min(-1).values)
@@ -118,8 +98,7 @@ def nn_plain(src: torch.Tensor, tgt: torch.Tensor,
     d2 = torch.cat(d2s, dim=1) if d2s else src.new_empty((b, 0))
     idx = torch.cat(idxs, dim=1) if idxs else cols.new_empty((b, 0))
     d2 = torch.where(d2 > _FAR, torch.full_like(d2, float("inf")), d2)
-    s_past = left_out(src_ext, src_mask, b, n, src.device)
-    if s_past is not None:
-        d2 = d2.masked_fill(s_past, float("inf"))
-        idx = idx.masked_fill(s_past, 0)
+    if src_mask is not None:
+        d2 = d2.masked_fill(~src_mask, float("inf"))
+        idx = idx.masked_fill(~src_mask, 0)
     return d2, idx

@@ -105,37 +105,23 @@ def make_source(cloud: PointCloud, params: RegistrationConfig) -> GICPCloud:
     return _identity_covs(cloud)
 
 
-class StageConsts(NamedTuple):
-    """What a solve stage computes once for all its Gauss-Newton
-    iterations: the row extents (`knn.row_extent`) of its source and target
-    masks, which do not change while it iterates, and the Hessian ridge."""
-
-    src_ext: torch.Tensor  # () int32
-    tgt_ext: torch.Tensor  # () int32
-    ridge: torch.Tensor    # (6, 6) 1e-6 I
-
-
-def stage_consts(src: GICPCloud, tgt: RegistrationTarget) -> StageConsts:
-    eye6 = torch.eye(6, device=src.points.device)
-    return StageConsts(knn.row_extent(src.mask),
-                       knn.row_extent(tgt.gicp.mask), 1e-6 * eye6)
+def hessian_ridge(device: torch.device) -> torch.Tensor:
+    """1e-6 I (6, 6), added to H before the solve; a solve stage makes it
+    once for all its Gauss-Newton iterations."""
+    return 1e-6 * torch.eye(6, device=device)
 
 
 def _correspondences(params: RegistrationConfig, p_world: torch.Tensor,
-                     src_mask: torch.Tensor, target: RegistrationTarget,
-                     st: StageConsts
+                     src_mask: torch.Tensor, target: RegistrationTarget
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (q (N,3), C_q (N,3,3), valid (N,)) at the current source pose."""
     tg = target.gicp
     _, idx, valid = knn.nn_within(p_world, src_mask, tg.points, tg.mask,
-                                  params.reg_max_correspondence_distance,
-                                  src_ext=st.src_ext, tgt_ext=st.tgt_ext)
+                                  params.reg_max_correspondence_distance)
     if params.reg_use_reciprocal_correspondences:
         # mutual nearest neighbours only (pcl setUseReciprocalCorrespondences)
         _, idx_back = knn.nearest_neighbor(tg.points, p_world, src_mask,
-                                           src_mask=tg.mask,
-                                           src_ext=st.tgt_ext,
-                                           tgt_ext=st.src_ext)
+                                           src_mask=tg.mask)
         mutual = idx_back[idx] == torch.arange(p_world.shape[0],
                                                device=idx.device)
         valid = valid & mutual
@@ -143,12 +129,13 @@ def _correspondences(params: RegistrationConfig, p_world: torch.Tensor,
 
 
 def _gn_step(params: RegistrationConfig, src: GICPCloud,
-             tgt: RegistrationTarget, pose: torch.Tensor, st: StageConsts):
+             tgt: RegistrationTarget, pose: torch.Tensor,
+             ridge: torch.Tensor):
     """One linearization -> (xi, H, mean error, inliers)."""
     sp = src.points
     R = se3.pose_rotation(pose)
     p_world = se3.pose_apply(pose, sp)
-    q, Cq, valid = _correspondences(params, p_world, src.mask, tgt, st)
+    q, Cq, valid = _correspondences(params, p_world, src.mask, tgt)
     r = q - p_world
     if params.registration_method != "ICP":
         W = inv3x3(Cq + R @ src.covs @ R.T)
@@ -163,7 +150,7 @@ def _gn_step(params: RegistrationConfig, src: GICPCloud,
     err = torch.einsum("na,nab,nb->", r, W, r)
     n_in = valid.sum(dtype=torch.int32)
     # solve_ex: no singularity check, which would sync with the host
-    xi = torch.linalg.solve_ex(H + st.ridge, -b).result
+    xi = torch.linalg.solve_ex(H + ridge, -b).result
     return xi, H, err / torch.clamp(n_in, min=1), n_in
 
 
@@ -180,10 +167,10 @@ def _run_stage(params: RegistrationConfig, src: GICPCloud,
     err = torch.full((), float("inf"), device=dev)
     n_in = torch.zeros((), dtype=torch.int32, device=dev)
     H = torch.zeros((6, 6), device=dev)
-    st = stage_consts(src, tgt)
+    ridge = hessian_ridge(dev)
     it = 0
     while it < budget:
-        xi, H, err2, n_in = _gn_step(params, src, tgt, pose, st)
+        xi, H, err2, n_in = _gn_step(params, src, tgt, pose, ridge)
         pose = se3.pose_retract(pose, xi)
         it += 1
         done = ((torch.linalg.vector_norm(xi[:3]) < eps)

@@ -11,15 +11,13 @@ PAD_VALUE, unless the caller leaves them out (below):
 - moments: (B, N, 10) f32 lanes [count, sx, sy, sz, xx, xy, xz, yy, yz,
            zz], raw sums over targets with d2 <= r2 (self included).
 
-Lanes that take part (moments only; count sweeps every lane). `src_ext`
-and `tgt_ext` are (B,) int32 row extents (`ops.knn.row_extent`: the index
-of the row's last valid lane plus one), `src_mask` (B, N) and `tgt_mask`
-(B, M) bool masks, all on the clouds' device; None means every lane. A
-lane takes part when it lies below its row's extent and its mask is set.
-Only targets that take part are summed, and a source lane that does not
-gets all-zero moments without being computed. On a source lane that takes
-part, the count is the Pallas kernel's and the sums are taken in the same
-ascending target order. On a masked-out source lane the moments may
+Lanes that take part (moments only; count sweeps every lane). `src_mask`
+(B, N) and `tgt_mask` (B, M) are bool masks on the clouds' device; None
+means every lane. A lane takes part when its mask is set. Only targets
+that take part are summed, and a source lane that does not gets all-zero
+moments without being computed. On a source lane that takes part, the
+count is the Pallas kernel's and the sums are taken in the same ascending
+target order. On a masked-out source lane the moments may
 differ from the JAX package's, and no caller reads them:
 - `knn.radius_count` (count) zeroes masked lanes;
 - `covariance.estimate_covariances_radius` (moments) gives masked lanes
@@ -38,7 +36,7 @@ import numpy as np
 import torch
 
 from . import native
-from .nn_kernel import _shapes, left_out
+from .nn_kernel import _shapes
 
 MOMENT_LANES = 10
 
@@ -53,11 +51,11 @@ def radius_sq(radius: float) -> float:
     return float(r * r)
 
 
-def _launch(name: str, symbol: str, src, tgt, r2, out, *lanes) -> None:
+def _launch(name: str, symbol: str, src, tgt, r2, out, *masks) -> None:
     b, n, m = _shapes(src, tgt)
     fn = getattr(native.library("radius_stats"), symbol)
     with torch.cuda.device(src.device):
-        rc = fn(src.data_ptr(), tgt.data_ptr(), b, n, m, r2, *lanes,
+        rc = fn(src.data_ptr(), tgt.data_ptr(), b, n, m, r2, *masks,
                 out.data_ptr(), native.stream_ptr(src.device))
     native.check_rc(rc, name)
 
@@ -77,19 +75,16 @@ count_cuda.launches = 0
 
 
 def moments_cuda(src: torch.Tensor, tgt: torch.Tensor, r2: float,
-                 src_ext: Optional[torch.Tensor] = None,
-                 tgt_ext: Optional[torch.Tensor] = None,
                  src_mask: Optional[torch.Tensor] = None,
                  tgt_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch csrc/radius_stats.cu:moments_kernel on CUDA tensors."""
     b, n, m = _shapes(src, tgt)
     native.check_cuda_f32(src, tgt)
-    se, sm = native.lane_ptrs(src.device, b, n, src_ext, src_mask)
-    te, tm = native.lane_ptrs(src.device, b, m, tgt_ext, tgt_mask)
+    sm = native.mask_ptr(src.device, b, n, src_mask)
+    tm = native.mask_ptr(src.device, b, m, tgt_mask)
     out = torch.empty((b, n, MOMENT_LANES), dtype=torch.float32,
                       device=src.device)
-    _launch("moments", "mrg_radius_moments", src, tgt, r2, out, se, te, sm,
-            tm)
+    _launch("moments", "mrg_radius_moments", src, tgt, r2, out, sm, tm)
     moments_cuda.launches += 1
     return out
 
@@ -118,31 +113,27 @@ def count_plain(src: torch.Tensor, tgt: torch.Tensor, r2: float,
 
 
 def moments_plain(src: torch.Tensor, tgt: torch.Tensor, r2: float,
-                  src_ext: Optional[torch.Tensor] = None,
-                  tgt_ext: Optional[torch.Tensor] = None,
                   src_mask: Optional[torch.Tensor] = None,
                   tgt_mask: Optional[torch.Tensor] = None,
                   chunk: int = 1024) -> torch.Tensor:
     """Targets that take no part are left out and sources that take no
     part get zeros, as in the kernel; the sums go through a matmul, in
     another order than the kernel's."""
-    b, n, m = _shapes(src, tgt)
+    b, n, _ = _shapes(src, tgt)
     x, y, z = tgt.unbind(-1)
     feats = torch.stack([torch.ones_like(x), x, y, z, x * x, x * y, x * z,
                          y * y, y * z, z * z], dim=-1)  # (B, M, 10)
-    t_past = left_out(tgt_ext, tgt_mask, b, m, src.device)
-    if t_past is not None:  # whatever such lanes hold, they add nothing
-        feats = feats.masked_fill(t_past[..., None], 0.0)
+    if tgt_mask is not None:  # whatever masked lanes hold, they add nothing
+        feats = feats.masked_fill(~tgt_mask[..., None], 0.0)
     out = torch.empty((b, n, MOMENT_LANES), dtype=torch.float32,
                       device=src.device)
     for s, d in _sqdist_chunks(src, tgt, chunk):
         w = d <= r2
-        if t_past is not None:
-            w = w & ~t_past[:, None, :]
+        if tgt_mask is not None:
+            w = w & tgt_mask[:, None, :]
         out[:, s:s + chunk] = w.to(torch.float32) @ feats
-    s_past = left_out(src_ext, src_mask, b, n, src.device)
-    if s_past is not None:
-        out = out.masked_fill(s_past[..., None], 0.0)
+    if src_mask is not None:
+        out = out.masked_fill(~src_mask[..., None], 0.0)
     return out
 
 

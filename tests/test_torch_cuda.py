@@ -7,10 +7,10 @@ chip_smoke.py makes the same checks at the main path's full shapes.
 
 Tolerances: nn indices and d2 bitwise (both round d2 step by step with no
 FMA), counts exact, moments within the float32 summation bound of two
-orders (see chip_smoke.check_moments). With row extents and masks (B rows
-that end at different lanes, holes, a row without a valid lane), nn stays
-bitwise on every lane and moments hold on the valid lanes, with the fixed
-values on the lanes that take no part.
+orders (see chip_smoke.check_moments). With masks (B rows whose valid
+lanes end at different lanes, holes, a row without a valid lane; masked
+lanes padded or not), nn stays bitwise on every lane and moments hold on
+the valid lanes, with the fixed values on the masked lanes.
 """
 
 import numpy as np
@@ -66,56 +66,54 @@ def test_nn_kernel_empty_target(rng, dev):
     assert torch.isinf(d2).all() and (idx == 0).all()
 
 
-def _extent_cloud(rng, dev, exts, n, holes=()):
-    """B rows of n lanes ending at `exts`, with hole lanes; the masked
-    lanes sit at PAD_VALUE. -> (points, mask, row extents)."""
-    pts, _ = _cloud(rng, dev, len(exts), n)
+def _extent_cloud(rng, dev, ends, n, holes=(), padded=True):
+    """B rows of n lanes whose valid lanes end at `ends` (none for 0),
+    with hole lanes; the masked lanes sit at PAD_VALUE or, unpadded, hold
+    points like the valid ones. -> (points, mask)."""
+    pts, _ = _cloud(rng, dev, len(ends), n)
     lanes = torch.arange(n, device=dev)
-    mask = lanes[None, :] < torch.tensor(exts, device=dev)[:, None]
+    mask = lanes[None, :] < torch.tensor(ends, device=dev)[:, None]
     for h in holes:
         mask[:, h] = False
-    for r, e in enumerate(exts):
+    for r, e in enumerate(ends):
         if e:
             mask[r, e - 1] = True
-    return pad_invalid(pts, mask).contiguous(), mask, knn.row_extent(mask)
+    if padded:
+        pts = pad_invalid(pts, mask).contiguous()
+    return pts, mask
 
 
-# (source extents, target extents, lanes, hole lanes)
+# (where the source rows' valid lanes end, the same for the targets,
+# lanes, hole lanes)
 _EXTENTS = [((997, 3, 0), (1, 640, 999), 1000, ()),
             ((4057,), (3783,), 8192, ()),
             ((700, 129, 257), (300, 513, 1), 800, (5, 128, 129, 255))]
 
 
-@pytest.mark.parametrize("masks", [False, True], ids=["extents", "masks"])
+@pytest.mark.parametrize("padded", [True, False], ids=["padded", "unpadded"])
 @pytest.mark.parametrize("sext,text,n,holes", _EXTENTS)
 def test_nn_kernel_extents_match_plain(rng, dev, sext, text, n, holes,
-                                       masks):
-    src, smask, se = _extent_cloud(rng, dev, sext, n, holes)
-    tgt, tmask, te = _extent_cloud(rng, dev, text, n, holes)
-    lanes = (se, te) + ((smask, tmask) if masks else ())
-    d_k, i_k = nn_kernel.nn_cuda(src, tgt, *lanes)
-    d_p, i_p = nn_kernel.nn_plain(src, tgt, *lanes)
+                                       padded):
+    src, smask = _extent_cloud(rng, dev, sext, n, holes, padded)
+    tgt, tmask = _extent_cloud(rng, dev, text, n, holes, padded)
+    d_k, i_k = nn_kernel.nn_cuda(src, tgt, smask, tmask)
+    d_p, i_p = nn_kernel.nn_plain(src, tgt, smask, tmask)
     torch.cuda.synchronize()
     assert torch.equal(i_k, i_p)
     assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
-    out = ~smask if masks else \
-        torch.arange(n, device=dev)[None, :] >= se[:, None]
-    assert torch.isinf(d_k[out]).all() and (i_k[out] == 0).all()
+    assert torch.isinf(d_k[~smask]).all() and (i_k[~smask] == 0).all()
 
 
-@pytest.mark.parametrize("masks", [False, True], ids=["extents", "masks"])
+@pytest.mark.parametrize("padded", [True, False], ids=["padded", "unpadded"])
 @pytest.mark.parametrize("sext,text,n,holes", _EXTENTS)
 def test_moments_kernel_extents_match_plain(rng, dev, sext, text, n, holes,
-                                            masks):
-    p, mask, ext = _extent_cloud(rng, dev, sext, n, holes)
-    lanes = (ext, ext) + ((mask, mask) if masks else ())
+                                            padded):
+    p, mask = _extent_cloud(rng, dev, sext, n, holes, padded)
     r2 = stats_kernel.radius_sq(0.6)
-    m_k = stats_kernel.moments_cuda(p, p, r2, *lanes)
-    m_p = stats_kernel.moments_plain(p, p, r2, *lanes)
+    m_k = stats_kernel.moments_cuda(p, p, r2, mask, mask)
+    m_p = stats_kernel.moments_plain(p, p, r2, mask, mask)
     torch.cuda.synchronize()
-    out = ~mask if masks else \
-        torch.arange(n, device=dev)[None, :] >= ext[:, None]
-    assert (m_k[out] == 0).all()
+    assert (m_k[~mask] == 0).all()
     c_k, mn_k, v_k = stats_kernel.moments_to_mean_cov(m_k)
     c_p, mn_p, v_p = stats_kernel.moments_to_mean_cov(m_p)
     assert torch.equal(c_k[mask], c_p[mask])

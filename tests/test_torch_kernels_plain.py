@@ -17,12 +17,11 @@ Tolerances and why:
 - moments: counts exact; mean and cov within 2 n u X and 2 n u X^2 + 2 X
   (mean tol) (u = 2^-24, n = neighbours, X = max |coord|): two float32
   summation orders of the raw sums differ by at most that.
-- lanes that take part (row extents and masks): on every valid source
-  lane the plain versions given the rows' extents and masks equal the
-  Pallas kernels (run row by row) as above, and the plain versions that
-  sweep every lane bit for bit; on every other source lane (masked, or
-  past the row's extent) they write the fixed values, (inf, 0) for nn and
-  zeros for moments.
+- lanes that take part (masks): on every valid source lane the plain
+  versions given the rows' masks equal the Pallas kernels (run row by
+  row) as above, and the plain versions that sweep every lane bit for
+  bit, whatever the masked lanes hold; on every masked source lane they
+  write the fixed values, (inf, 0) for nn and zeros for moments.
 """
 
 import numpy as np
@@ -181,9 +180,9 @@ def test_moments_plain_matches_pallas_and_golden(interpret_pallas, rng):
                                atol=tol_cov)
 
 
-# per-row masks of 3 rows of 700 lanes: (row extents, hole lanes). None
-# of the extents is a multiple of a tile of the Pallas kernels (1024,
-# 2048, 512) or of the CUDA ones (128, 256, 1024, 2048)
+# per-row masks of 3 rows of 700 lanes: (where each row's valid lanes
+# end, hole lanes). No row ends at a multiple of a tile of the Pallas
+# kernels (1024, 2048, 512) or of the CUDA ones (128, 256, 1024, 2048)
 _EXTENT_CASES = {
     "prefix": ((697, 389, 131), ()),
     "holes": ((601, 453, 77), (3, 40, 41, 42, 76, 300, 450)),
@@ -192,14 +191,16 @@ _EXTENT_CASES = {
 
 
 def _extent_masks(case, b=3, n=700):
-    exts, holes = _EXTENT_CASES[case]
-    mask = np.arange(n)[None, :] < np.asarray(exts)[:, None]
+    """(b, n) masks whose row r has its last valid lane at ends[r] - 1 (no
+    valid lane for 0) -> (masks, ends)."""
+    ends, holes = _EXTENT_CASES[case]
+    mask = np.arange(n)[None, :] < np.asarray(ends)[:, None]
     for h in holes:
         mask[:, h] = False
-    for r, e in enumerate(exts):  # an extent is a valid lane plus one
+    for r, e in enumerate(ends):
         if e:
             mask[r, e - 1] = True
-    return mask, np.asarray(exts, np.int32)
+    return mask, np.asarray(ends, np.int32)
 
 
 def _clustered_rows(rng, b=3, n=700):
@@ -211,24 +212,13 @@ def _clustered_rows(rng, b=3, n=700):
     return pts
 
 
-def test_row_extent_is_last_valid_lane_plus_one():
-    for case in _EXTENT_CASES:
-        mask, exts = _extent_masks(case)
-        got = knn.row_extent(_t(mask))
-        assert got.dtype == torch.int32
-        np.testing.assert_array_equal(got.numpy(), exts)
-        past = np.arange(mask.shape[1])[None, :] >= exts[:, None]
-        assert not mask[past].any()
-    assert knn.row_extent(torch.zeros((2, 0), dtype=torch.bool)).shape == (2,)
-
-
 @pytest.mark.parametrize("case", sorted(_EXTENT_CASES))
 def test_nn_plain_extents_match_pallas(interpret_pallas, rng, case):
     from mrg_slam_tpu.ops.pallas_nn import nearest_neighbor_pallas
 
-    smask, sext = _extent_masks(case)
-    tmask, text = _extent_masks(case)
-    tmask, text = tmask[::-1].copy(), text[::-1].copy()  # other extents
+    smask, _ = _extent_masks(case)
+    tmask, tend = _extent_masks(case)
+    tmask, tend = tmask[::-1].copy(), tend[::-1].copy()  # other rows
     src = rng.uniform(-45, 45, size=smask.shape + (3,)).astype(np.float32)
     tgt = rng.uniform(-45, 45, size=tmask.shape + (3,)).astype(np.float32)
     src[:, :40] = tgt[:, 20:60]  # sources on targets: d2 == 0 and ties
@@ -246,9 +236,9 @@ def test_nn_plain_extents_match_pallas(interpret_pallas, rng, case):
         assert np.array_equal(d2[r][v].view(np.int32),
                               fd2[r].numpy()[v].view(np.int32))
         assert np.array_equal(idx[r][v], fidx[r].numpy()[v])
-        # masked lanes, those past the extent among them: (inf, 0)
+        # masked lanes, those past the last valid one among them: (inf, 0)
         assert np.isinf(d2[r][~v]).all() and (idx[r][~v] == 0).all()
-        if text[r] == 0:  # no target: (inf, 0) everywhere
+        if tend[r] == 0:  # no target: (inf, 0) everywhere
             assert np.isinf(d2[r]).all() and (idx[r] == 0).all()
 
 
@@ -276,28 +266,22 @@ def test_nn_without_src_mask_computes_every_lane(interpret_pallas, rng):
 def test_moments_plain_extents_match_pallas(interpret_pallas, rng, case):
     from mrg_slam_tpu.ops.pallas_stats import radius_moments_pallas
 
-    mask, exts = _extent_masks(case)
+    mask, _ = _extent_masks(case)
     pts = _clustered_rows(rng)
     padded = np.where(mask[..., None], pts, np.float32(PAD_VALUE))
-    ext = knn.row_extent(_t(mask))
     r2 = stats_kernel.radius_sq(1.0)
-    # the extents alone (pads inside them sit at PAD_VALUE), and with the
-    # masks on the unpadded points, as estimate_covariances_radius calls it
-    by_ext = stats_kernel.moments_plain(_t(padded), _t(padded), r2, ext, ext)
-    mo = stats_kernel.moments_plain(_t(pts), _t(pts), r2, ext, ext,
-                                    _t(mask), _t(mask))
+    # the masks on the unpadded points, as estimate_covariances_radius
+    # calls it, against every lane of the padded points
+    mo = stats_kernel.moments_plain(_t(pts), _t(pts), r2, _t(mask),
+                                    _t(mask))
     full = stats_kernel.moments_plain(_t(padded), _t(padded), r2)
     cnt, mean, cov = (v.numpy() for v in
                       stats_kernel.moments_to_mean_cov(mo))
     for r in range(pts.shape[0]):
         m = mask[r]
-        past = np.arange(pts.shape[1]) >= exts[r]
-        assert (by_ext[r].numpy()[past] == 0).all()
         assert (mo[r].numpy()[~m] == 0).all()
         if not m.any():
             continue
-        np.testing.assert_array_equal(by_ext[r].numpy()[m],
-                                      full[r].numpy()[m])
         np.testing.assert_array_equal(mo[r].numpy()[m], full[r].numpy()[m])
         pcnt, pmean, pcov = (np.asarray(v) for v in radius_moments_pallas(
             jnp.asarray(pts[r]), jnp.asarray(m), 1.0))
@@ -320,6 +304,22 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         stats_kernel.count_cuda(pts, pts, 0.25)
     with pytest.raises(ValueError):
         stats_kernel.moments_cuda(pts, pts, 0.25)
-    ext = torch.zeros(1, dtype=torch.int32)
+    mask = torch.ones((1, 8), dtype=torch.bool)
     with pytest.raises(ValueError):
-        nn_kernel.nn_cuda(pts, pts, ext, ext)
+        nn_kernel.nn_cuda(pts, pts, mask, mask)
+
+
+def test_mask_ptr_checks_the_mask():
+    """A kernel takes a (B, lanes) contiguous bool mask on its clouds'
+    device, or None for every lane; anything else raises."""
+    from mrg_slam_tpu_torch.ops import native
+
+    cpu = torch.device("cpu")
+    assert native.mask_ptr(cpu, 2, 5, None) is None
+    mask = torch.ones((2, 5), dtype=torch.bool)
+    assert native.mask_ptr(cpu, 2, 5, mask) == mask.data_ptr()
+    for bad in (torch.ones((5, 2), dtype=torch.bool),
+                torch.ones((2, 5), dtype=torch.uint8),
+                torch.ones((5, 2), dtype=torch.bool).t()):
+        with pytest.raises(ValueError):
+            native.mask_ptr(cpu, 2, 5, bad)
