@@ -5,10 +5,11 @@
 
 Builds the hand-written kernels of `mrg_slam_tpu_torch/csrc/` for sm_90a,
 holds each one against its plain PyTorch version on the card at the shapes
-of the front end's main path (with and without the rows' masks, ragged
-rows included), then drives the front end (prefilter -> fused GICP
-odometry) at full width on bench.py's production world and checks its
-ATE against the JAX package's on the same frames. Any failed check
+and on the inputs of the front end's main path (with and without the rows'
+masks, ragged rows included; count also on rows in one cell and pairs at
+the radius across cell faces), then drives the front end (prefilter ->
+fused GICP odometry) at full width on bench.py's production world and
+checks its ATE against the JAX package's on the same frames. Any failed check
 raises. The last line of standard output is {"ok": true, "device":
 {...}}; the line before it lists every kernel with its launches, error
 and times: "ms", "plain_ms" and "library_ms" are one call between CUDA
@@ -62,8 +63,15 @@ def card_line():
 
 
 def cuda_ms(torch, fn, reps=TIMING_REPS, warmup=3):
-    """Median device time of fn() over `reps` runs, CUDA events."""
-    for _ in range(warmup):
+    """Median device time of fn() over `reps` runs, CUDA events; a
+    function slower than 0.1 s (a yardstick) gets 3 runs after one
+    warm-up."""
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    if time.perf_counter() - t0 > 0.1:
+        reps, warmup = 3, 0
+    for _ in range(warmup - 1):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -228,14 +236,42 @@ def check_nn(torch, nk, src, tgt, name, *masks):
     return float((d_k[fin] - d_p[fin]).abs().max()) if fin.any() else 0.0
 
 
-def check_count(torch, sk, pts, r2, name):
-    c_k = sk.count_cuda(pts, pts, r2)
-    c_p = sk.count_plain(pts, pts, r2)
+def check_count(torch, sk, pts, mask, r2, name):
+    """Exact on every lane, 0 on the masked ones; -> (max |error|, the
+    plain counts)."""
+    c_k = sk.count_cuda(pts, mask, r2)
+    c_p = sk.count_plain(pts, mask, r2)
     torch.cuda.synchronize()
     if not torch.equal(c_k, c_p):
         raise AssertionError(f"count {name}: {(c_k != c_p).sum().item()} "
                              "counts differ from the plain version")
-    return float((c_k - c_p).abs().max())
+    if mask is not None and not (c_k[~mask] == 0).all():
+        raise AssertionError(f"count {name}: masked lanes are not 0")
+    return float((c_k - c_p).abs().max()), c_p
+
+
+def count_hard_rows(torch, dev, sk, rng, r2):
+    """Rows that bin badly or sit on the cell rule's edge -> (name,
+    points, mask) for check_count: every point in one cell; pairs at the
+    radius (d2 within a few float32 steps of r^2 either side), each
+    crossing a cell face, at up to +-45 m; an all-masked row beside a
+    full one."""
+    c, _ = sk.count_cell(r2)
+    one = (rng.uniform(0.01, 0.3, (2, 3000, 3)) + 7 * c).astype(np.float32)
+    k = FILTERED // 2
+    v = rng.normal(size=(4, k, 3))
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    a = rng.integers(-89, 89, (4, k, 3)) * c - 0.25 * v
+    s = np.sqrt(r2) * (1 + rng.integers(-4, 5, (4, k, 1)) * 2.0 ** -22)
+    pairs = np.concatenate([a, a + s * v], 1).astype(np.float32)
+    half = rng.uniform(-45, 45, (2, FILTERED, 3)).astype(np.float32)
+    half_mask = np.zeros((2, FILTERED), bool)
+    half_mask[0] = True
+    return [(name, torch.from_numpy(x).to(dev),
+             None if m is None else torch.from_numpy(m).to(dev))
+            for name, x, m in (("one cell", one, None),
+                               ("pairs at the radius", pairs, None),
+                               ("all-masked row", half, half_mask))]
 
 
 def check_moments(torch, sk, pts, r2, name, mask=None):
@@ -313,14 +349,18 @@ def launch_floor_ms(torch, native):
     return cuda_ms(torch, empty), graph_ms(torch, empty)
 
 
-def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt):
+def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt,
+                 count_pts, count_mask):
     """Hold every kernel against its plain version; time all three.
 
-    `block_mask` marks the real points of `block_pts` (frame 0 is the nn
-    target, frame 1 its source). nn and moments get the rows' masks, as
-    on the main path. The bounds count only the pairs of real points,
-    which are all the main path needs: pad lanes' results are never
-    read."""
+    `block_mask` marks the real points of `block_pts`, the first block
+    after prefilter (frame 0 is the nn target, frame 1 its source); nn
+    and moments get the rows' masks, as on the main path. Count runs
+    before RADIUS removal, on the same block's voxel grid output
+    `count_pts` with its mask `count_mask`. The bounds count only what
+    these inputs need: the pairs of real points for nn and moments (pad
+    lanes' results are never read), the pairs within the radius for
+    count (any exact search does at least those)."""
     from mrg_slam_tpu_torch.ops import native
     from mrg_slam_tpu_torch.ops import nn_kernel as nk
     from mrg_slam_tpu_torch.ops import stats_kernel as sk
@@ -351,15 +391,27 @@ def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt):
     nn_masks = (block_mask[1:2].contiguous(), block_mask[0:1].contiguous())
     check_nn(torch, nk, nn_src, nn_tgt, "real, every lane")
     err_nn = check_nn(torch, nk, nn_src, nn_tgt, "real", *nn_masks)
-    check_count(torch, sk, u_pad, r2c, "uniform")
-    err_c = check_count(torch, sk, block_pts, r2c, "real block")
+    check_count(torch, sk, u_pts[None], u_mask[None], r2c, "uniform")
+    check_count(torch, sk, u_pad, None, r2c, "uniform, every lane")
+    for name, s_ends, _, n_lanes, holes in RAGGED:
+        src_p, src_r, sm = ragged_rows(torch, dev, rng, s_ends, n_lanes,
+                                       holes)
+        check_count(torch, sk, src_p, sm, r2c, name)
+        check_count(torch, sk, src_r, sm, r2c, name + ", unpadded")
+        check_count(torch, sk, src_p, None, r2c, name + ", every lane")
+    for name, pts, mask in count_hard_rows(torch, dev, sk, rng, r2c):
+        check_count(torch, sk, pts, mask, r2c, name)
+    check_count(torch, sk, count_pts, None, r2c, "voxel block, every lane")
+    err_c, c_plain = check_count(torch, sk, count_pts, count_mask, r2c,
+                                 "voxel block")
     check_moments(torch, sk, u_pad, r2m, "uniform")
     check_moments(torch, sk, block_pts, r2m, "real block, every lane")
     err_m, inside = check_moments(torch, sk, block_pts, r2m, "real block",
                                   block_mask)
     log("# kernels == plain versions on the card (nn bitwise on every lane, "
         "counts exact, moments within the f32 summation bound; with and "
-        "without masks)")
+        "without masks; count on the voxel block, rows in one cell, pairs "
+        "at the radius across cell faces and an all-masked row)")
 
     # the library yardsticks compute the same function: pairs of real
     # points (their lanes found on the host here, outside the path)
@@ -378,10 +430,12 @@ def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt):
 
     # the exact-difference cdist refuses a batch of 32 x 8192 rows (its
     # grid overflows), so the yardsticks run it frame by frame
+    count_real = [p[m] for p, m in zip(count_pts, count_mask)]
+
     def lib_count():
         return [((d <= 0.5) & (d > 0)).sum(-1) for d in (
             torch.cdist(p, p, compute_mode="donot_use_mm_for_euclid_dist")
-            for p in block_pts)]
+            for p in count_real)]
 
     pts_real = [p[r] for p, r in zip(block_pts, real)]
     feats_real = [f[r] for f, r in zip(feats, real)]
@@ -396,6 +450,21 @@ def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt):
     pairs_blk = float((n_real * n_real).sum())
     log(f"# real points per frame {int(n_real.min())}-{int(n_real.max())} "
         f"of {n}; in-radius (0.6 m) real pairs {inside:.0f}")
+    # count's input: every lane of the voxel grid's output is valid
+    c_lanes = count_mask.sum(-1).double()
+    pairs_c = float(c_plain.double().sum())  # ordered pairs within 0.5 m
+    c_per = c_plain[count_mask].double()
+    brute_ms = bound(float((c_lanes * c_lanes).sum()), 11, 0, 0)[0]
+    log(f"# count input (voxel grid output): valid lanes per frame "
+        f"{int(c_lanes.min())}-{int(c_lanes.max())} of "
+        f"{count_pts.shape[1]}; in-radius (0.5 m) pairs {pairs_c:.0f}, "
+        f"neighbours per point mean {float(c_per.mean()):.3f}, max "
+        f"{int(c_per.max())}; a sweep of every valid pair would be bound "
+        f"at {brute_ms:.4f} ms (operations)")
+    by_split = {s: graph_ms(torch, lambda s=s: sk.count_cuda(
+        count_pts, count_mask, r2c, split=s)) for s in (1, 2, 4, 8)}
+    log(f"# count device ms a launch by blocks per row S: {by_split} "
+        f"(default S = {sk.count_split(dev, count_pts.shape[0])})")
     floor_ms = launch_floor_ms(torch, native)
     rows = []
     for name, src, fk, fp, flib, pairs, opp, extra, out_b, repl in (
@@ -405,9 +474,9 @@ def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt):
              pairs_nn, 9, 0, nn_src.shape[1] * 12,
              "mrg_slam_tpu/ops/pallas_nn.py:48"),
             ("count", "mrg_slam_tpu_torch/csrc/radius_stats.cu",
-             lambda: sk.count_cuda(block_pts, block_pts, r2c),
-             lambda: sk.count_plain(block_pts, block_pts, r2c), lib_count,
-             pairs_blk, 11, 0, b * n * 4,
+             lambda: sk.count_cuda(count_pts, count_mask, r2c),
+             lambda: sk.count_plain(count_pts, count_mask, r2c), lib_count,
+             pairs_c, 11, 0, count_mask.numel() * 5,
              "mrg_slam_tpu/ops/pallas_stats.py:34"),
             ("moments", "mrg_slam_tpu_torch/csrc/radius_stats.cu",
              lambda: sk.moments_cuda(block_pts, block_pts, r2m, block_mask,
@@ -416,8 +485,9 @@ def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt):
                                       block_mask),
              lib_moments, pairs_blk, 9, 16 * inside, b * n * 40,
              "mrg_slam_tpu/ops/pallas_stats.py:93")):
-        in_b = (nn_src.numel() + nn_tgt.numel()) * 4 if name == "nn" \
-            else block_pts.numel() * 4
+        in_b = {"nn": (nn_src.numel() + nn_tgt.numel()) * 4,
+                "count": count_pts.numel() * 4}.get(name,
+                                                    block_pts.numel() * 4)
         bms, by = bound(pairs, opp, extra, in_b + out_b)
         ms = cuda_ms(torch, fk)
         device_ms = graph_ms(torch, fk)
@@ -479,7 +549,7 @@ def main():
     from mrg_slam_tpu_torch.ops import native, nn_kernel, stats_kernel
     from mrg_slam_tpu_torch.ops import registration as reg
     from mrg_slam_tpu_torch.ops.cloud import PointCloud, pad_invalid
-    from mrg_slam_tpu_torch.ops.prefilter import prefilter
+    from mrg_slam_tpu_torch.ops.prefilter import downsample_stage, prefilter
     from mrg_slam_tpu_torch.runtime import resolve_device
     from mrg_slam_tpu_torch.utils.metrics import ate_rmse
 
@@ -496,13 +566,17 @@ def main():
         f"x {int(inp.rmask.sum(1).float().mean())} raw pts, built in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # kernel phase inputs at the main path's shapes: the first prefiltered
-    # block (count/moments, B=32 x 8192) and one frame pair (nn, 8192^2)
-    blk = prefilter(PointCloud(inp.raw[:BLOCK], inp.rmask[:BLOCK]), inp.pre)
+    # kernel phase inputs on the main path: the first block (B=32 x 8192)
+    # as RADIUS removal counts on it (count), the same block prefiltered
+    # (moments) and one frame pair of it (nn, 8192^2)
+    first = PointCloud(inp.raw[:BLOCK], inp.rmask[:BLOCK])
+    vox = downsample_stage(first, inp.pre)
+    blk = prefilter(first, inp.pre)
     block_pts = pad_invalid(blk.points, blk.mask).contiguous()
     nn_src = blk.points[1:2].contiguous()
     nn_tgt = block_pts[0:1].contiguous()
-    rows = kernel_phase(torch, dev, block_pts, blk.mask, nn_src, nn_tgt)
+    rows = kernel_phase(torch, dev, block_pts, blk.mask, nn_src, nn_tgt,
+                        vox.points.contiguous(), vox.mask.contiguous())
     src1 = reg.make_source(PointCloud(blk.points[1], blk.mask[1]),
                            inp.odo.registration)
     tgt0 = reg.make_target(PointCloud(blk.points[0], blk.mask[0]),

@@ -1,22 +1,20 @@
-// Shared pieces of the brute-force neighbour kernels (nn.cu,
-// radius_stats.cu).
-//
-// count_kernel keeps the first design (kThreads, kTile, load_tile,
-// grid_for): one thread owns one source point and keeps its running result
-// in registers; the block sweeps the target cloud in tiles staged in
-// shared memory as structure-of-arrays f32, every thread reading the same
-// target at the same time (a broadcast, no bank conflicts).
+// Shared pieces of the neighbour kernels (nn.cu, radius_stats.cu).
 //
 // nn_kernel and moments_kernel take part only the lanes that are set in
 // the row's mask (lane_valid). A block compacts its valid sources
 // (stage_sources) and, a window at a time, the valid targets it sweeps
 // (stage_valid) into shared memory as float4 (x, y, z, lane), so masked
 // lanes cost neither a thread nor a pair, and one 16-byte broadcast load
-// serves every source a thread owns.
+// serves every source a thread owns. count_kernel bins a row's valid
+// lanes by cell and scans its bucket counts in place
+// (block_scan_inplace).
 //
-// Every kernel writes each output once, without atomics, so a launch is
-// deterministic. gridDim.y runs over a batch of independent (source,
-// target) pairs of equal sizes.
+// nn_kernel and moments_kernel write each output once, without atomics.
+// count_kernel bins with shared-memory atomics, so the order of points
+// within a bucket changes from run to run, but its outputs are integer
+// counts that do not depend on that order. Every launch is therefore
+// deterministic, bit for bit. gridDim.y runs over a batch of independent
+// rows (or (source, target) pairs) of equal sizes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,9 +22,6 @@
 #include <cstddef>
 
 namespace mrg {
-
-constexpr int kThreads = 256;  // source points per block
-constexpr int kTile = 2048;    // targets per shared-memory tile (24 KB)
 
 // Squared distance from exact coordinate differences, rounded step by step
 // as ((dx*dx + dy*dy) + dz*dz). The _rn intrinsics keep nvcc from
@@ -39,22 +34,6 @@ __device__ __forceinline__ float sqdist(float sx, float sy, float sz,
   const float dz = __fsub_rn(sz, tz);
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
-}
-
-// Stage targets [base, base + len) of an (M, 3) AoS cloud into the tile.
-__device__ __forceinline__ void load_tile(const float* __restrict__ tgt,
-                                          int base, int len, float* tx,
-                                          float* ty, float* tz) {
-  for (int k = threadIdx.x; k < len; k += kThreads) {
-    const float* p = tgt + 3 * static_cast<size_t>(base + k);
-    tx[k] = p[0];
-    ty[k] = p[1];
-    tz[k] = p[2];
-  }
-}
-
-inline dim3 grid_for(int batch, int n) {
-  return dim3((n + kThreads - 1) / kThreads, batch);
 }
 
 // Whether lane i of a row of n lanes takes part: i < n and marked valid
@@ -89,6 +68,40 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* tmp,
   }
   __syncthreads();  // tmp is free again
   return before + x - v;
+}
+
+// In-place exclusive prefix sum of a[0, n) over the block (blockDim.x a
+// multiple of 32, at most 32 warps); returns the sum of all n. Each warp
+// scans a contiguous share, 32 entries at a time, and block_exclusive_scan
+// offsets the shares. `tmp` holds one int per warp. Every thread must
+// call it, with a[0, n) complete; a is complete again on return.
+__device__ __forceinline__ int block_scan_inplace(int* a, int n, int* tmp) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int per = (n + warps - 1) / warps;
+  const int lo = min(n, warp * per);
+  const int hi = min(n, lo + per);
+  int carry = 0;
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    const int x = i < hi ? a[i] : 0;
+    int sum = x;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, sum, o);
+      if (lane >= o) sum += y;
+    }
+    if (i < hi) a[i] = carry + sum - x;
+    carry += __shfl_sync(0xffffffffu, sum, 31);
+  }
+  int total;
+  const int before = __shfl_sync(
+      0xffffffffu, block_exclusive_scan(lane == 0 ? carry : 0, tmp, total),
+      0);
+  for (int i = lo + lane; i < hi; i += 32) a[i] += before;
+  __syncthreads();
+  return total;
 }
 
 // Stage the valid targets among lanes [base, base + len) of an (M, 3) AoS

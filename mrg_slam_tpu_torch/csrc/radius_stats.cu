@@ -3,80 +3,225 @@
 //
 // Replaces mrg_slam_tpu/ops/pallas_stats.py:_count_kernel (through
 // _count_call / radius_count_pallas) and :_moments_kernel (through
-// _moments_call / radius_moments_pallas). The Pallas kernels accumulated
-// into an output block revisited along a sequential target-chunk grid
-// axis; here the accumulators are registers of the thread that owns the
-// source point, and the block loops over shared-memory target tiles
-// (common.cuh).
-//
-// What bounds them on an H100: FP32 instructions, as for nn.cu. The
-// distance test costs ~9 FP32 operations per pair; count adds ~2
-// (second compare, increment) and moments adds ~16 more per pair that lies
-// inside the radius (count, 3 sums, 6 products, 6 sums). The inputs
-// (8192 x 12 B) and outputs (8192 x 4 B or x 40 B) are negligible against
-// HBM. Both keep all accumulators in registers and branch on the radius
-// test, so pairs outside the radius, the vast majority at r ~ 0.5 m, cost
-// only the distance test.
-//
-// count_kernel keeps the first design: one thread per source, every lane
-// swept, SoA tiles (common.cuh). moments_kernel takes part only the valid
-// lanes (set in the row's mask; a null mask: every lane): a block compacts
-// its valid sources and, a window at a time, the valid targets into shared
-// memory as float4 (common.cuh), and lanes that do not take part get
-// zeros. About half of a frame's 8192 lanes are real,
-// spread over the row, so this drops ~3/4 of the pairs, and with them the
-// pad-by-pad pairs (d2 = 0) that took the accumulate branch. A thread
-// holds 1-2 sources, and one broadcast LDS.128 serves both. At B = 32 the
-// grid already fills the card (512 blocks of 8 warps), so no split; on an
-// H100 256-thread blocks beat 128 (fewer blocks stage the same targets)
-// and 4 source slots per thread. Each source still sweeps its targets in
-// ascending order in one thread, so the moments of a valid lane are the
-// first design's, bit for bit. ptxas (sm_90a): moments_kernel 48
-// registers, 41220 bytes of shared memory; count_kernel 32 registers,
-// 24576 bytes; no spills.
+// _moments_call / radius_moments_pallas). The Pallas kernels swept every
+// (source, target) pair, accumulating into an output block revisited
+// along a sequential target-chunk grid axis.
 //
 // Semantics (pallas_stats.py:41, 100, 161-170):
-//  - count: a target counts when 0 < d2 <= r2, which excludes the point
-//    itself AND exact duplicates of it;
+//  - count: a point counts the other valid points of its row with
+//    0 < d2 <= r2, which excludes the point itself AND exact duplicates of
+//    it; a masked lane takes no part and gets 0;
 //  - moments: every target with d2 <= r2 counts, the point itself
 //    included; the sums are RAW (not centred), and the wrapper forms
 //    cov = M2/n - mean mean^T exactly as the reference does.
-// Masked targets arrive at PAD_VALUE (1e6) and lie outside any radius of a
-// real point.
+//
+// count_kernel: an exact cell-binned search. On the front end's path it
+// runs on the voxel grid's output, (32, 8192) with every lane valid and
+// ~1.5 neighbours within 0.5 m per point, so a sweep of all pairs tests
+// ~99.98 % pairs that cannot count. Each block bins its row's valid
+// points into cubic cells of side c >= r in shared memory (a hashed
+// counting sort: a histogram of H buckets with shared atomics, a block
+// scan, a scatter of float4 (x, y, z, lane)), then answers the points of
+// its 1/S of the buckets, in bucket order so that the threads of a warp
+// look at the same cells. A point tests only the points of the 27 cells
+// around its own with mrg::sqdist and 0 < d2 <= r2, exactly the test of
+// the sweep. The grid is (S, B): every block bins the whole row and
+// S x B blocks fill the card once (one 197 KB block per SM; S = 4 at
+// B = 32). What bounds it on an H100: neither bytes (~1.3 us at B = 32)
+// nor FP32 operations (~0.1 us); it is latency. Timed by S on an H100
+// SXM (chip_smoke.py), the binning takes ~3/4 of a launch: its two
+// passes over the row wait on global loads and shared atomics.
+// ptxas (sm_90a): count_kernel 36 registers, no spills.
+//
+// Cells. Python (stats_kernel.count_cell) gives c = max(sqrt(r2), 2^-60)
+// (1 + 2^-10) and inv_c = 1/c, both rounded to float64; a coordinate v
+// lies in cell floor(v (x) inv_c), the float64 product of the exact
+// float64 value of v, converted with saturation to int32.
+// Claim: if points a, b (finite float32) have d2 <= r2, as mrg::sqdist
+// rounds it, their cells differ by at most one on every axis, whatever
+// their coordinates. Proof, on one axis with x = a_i, y = b_i,
+// u = 2^-24, e = 2^-53:
+//  1. Every term of d2 is >= 0, so each of its five roundings shrinks it
+//     by at most a factor (1 - u): (x - y)^2 (1 - u)^5 <= d2 <= r2, and
+//     |x - y| <= sqrt(r2) (1 + 3u). (If dx^2 underflows, |x - y| < 2^-62,
+//     below c as well.) c went through two float64 roundings, so
+//     |x - y| <= c (1 + 3u)(1 + 2e) / (1 + 2^-10) < c.
+//  2. If x == y the cells are equal. Else let |y| <= |x|. If y is 0 or
+//     its sign differs, or |y| <= |x| / 2, then |x - y| >= |x| / 2. Else x
+//     and y share their sign and x is a multiple of ulp(y) > 2^-25 |x|, so
+//     |x - y| >= ulp(y). Either way |x|, |y| < 2^25 |x - y| < 2^25 c.
+//  3. inv_c = (1 + e0) / c and t_v = v (x) inv_c = v inv_c (1 + e_v),
+//     |e0|, |e_v| <= e. So |t_x - t_y| <= |x - y| (1 + e) / c +
+//     (|x| + |y|) (1 + e) e / c < (1 + 3u)(1 + 4e) / (1 + 2^-10) + 2^-26
+//     < 1 - 2^-11 + 2^-26 < 1, and floor(t_x), floor(t_y) differ by at
+//     most one. |t| < 2^26 here, so the int32 conversion saturates
+//     neither value.
+// So a point's neighbours lie in the 27 cells around its own, for every
+// finite coordinate (no limit: PAD_VALUE's 1e6 included). NaN and
+// infinite coordinates land in some cell and never pass the d2 test, as
+// in the sweep. With float32 products instead, step 3 would hold only for
+// |coordinates| below ~2^13 c (~4 km at r = 0.5 m).
+//
+// Buckets. A cell (i, j, k) goes to bucket (i + j P2 + k P3) mod H, in
+// wrapping 32-bit arithmetic, H a power of two >= 64. The hash is linear,
+// so the 27 cells around a point are 9 runs of 3 consecutive buckets,
+// (h0 + dj P2 + dk P3 - 1 ... + 1) mod H, and their 27 buckets differ:
+// P2 = 3 and P3 = 9 (mod 64), so the offsets dx + 3 dy + 9 dz are
+// -13..13 mod 64 (static_assert below), distinct mod 64 and hence mod
+// every H >= 64. A point lies in one bucket, so it is tested at most once
+// per source; a bucket may also hold points of other cells (collisions),
+// which the exact d2 test counts only if they are neighbours, and every
+// neighbour is in a bucket visited. Hence every count equals the sweep's,
+// with no check of a candidate's own cell. Within a bucket the order
+// of points follows the atomics and changes from run to run; the counts
+// are integers and do not. A row of N points needs 16 N + 4 (H + 33)
+// bytes of shared memory (N = 8192: H = 16384, 196740 B), so a row of
+// more than 10423 lanes does not fit in an H100 block's 227 KB and the
+// wrapper refuses it. Degenerate rows are right and slow: N points in one
+// cell cost N^2 tests.
+//
+// moments_kernel: FP32 instructions bound it, as for nn.cu. The distance
+// test costs ~9 FP32 operations per pair and moments adds ~16 more per
+// pair that lies inside the radius (count, 3 sums, 6 products, 6 sums).
+// It takes part only the valid lanes (set in the row's mask; a null mask:
+// every lane): a block compacts its valid sources and, a window at a
+// time, the valid targets into shared memory as float4 (common.cuh), and
+// lanes that do not take part get zeros. About half of a frame's 8192
+// lanes are real, spread over the row, so this drops ~3/4 of the pairs,
+// and with them the pad-by-pad pairs (d2 = 0) that took the accumulate
+// branch. A thread holds 1-2 sources, and one broadcast LDS.128 serves
+// both. At B = 32 the grid already fills the card (512 blocks of 8
+// warps), so no split; on an H100 256-thread blocks beat 128 (fewer
+// blocks stage the same targets) and 4 source slots per thread. Each
+// source sweeps its targets in ascending order in one thread, so the
+// moments of a valid lane are bit for bit those of the first design.
+// ptxas (sm_90a): moments_kernel 48 registers, 41232 bytes of shared
+// memory; no spills.
 #include "common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(mrg::kThreads)
-    count_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
-                 int n, int m, float r2, int* __restrict__ out) {
-  __shared__ float tx[mrg::kTile];
-  __shared__ float ty[mrg::kTile];
-  __shared__ float tz[mrg::kTile];
-  const size_t b = blockIdx.y;
-  src += b * n * 3;
-  tgt += b * m * 3;
-  const int i = blockIdx.x * mrg::kThreads + threadIdx.x;
-  const bool active = i < n;
-  float sx = 0.f, sy = 0.f, sz = 0.f;
-  if (active) {
-    sx = src[3 * i];
-    sy = src[3 * i + 1];
-    sz = src[3 * i + 2];
+constexpr int kCoThreads = 1024;  // threads per count block
+constexpr int kMinHashBits = 6;   // H >= 64: the stencil's buckets differ
+constexpr unsigned kP2 = 0x9E3779C3u;  // bucket strides of cells along y
+constexpr unsigned kP3 = 0x85EBCA49u;  // and z; along x the stride is 1
+
+__host__ __device__ constexpr unsigned stencil_offset(int dx, int dy,
+                                                      int dz) {
+  return static_cast<unsigned>(dx) + static_cast<unsigned>(dy) * kP2 +
+         static_cast<unsigned>(dz) * kP3;
+}
+
+constexpr bool stencil_buckets_differ() {
+  unsigned v[27] = {};
+  int k = 0;
+  for (int dz = -1; dz <= 1; ++dz)
+    for (int dy = -1; dy <= 1; ++dy)
+      for (int dx = -1; dx <= 1; ++dx)
+        v[k++] = stencil_offset(dx, dy, dz) & ((1u << kMinHashBits) - 1u);
+  for (int i = 0; i < 27; ++i)
+    for (int j = i + 1; j < 27; ++j)
+      if (v[i] == v[j]) return false;
+  return true;
+}
+static_assert(stencil_buckets_differ(),
+              "the 27 cells around a point must go to 27 buckets");
+
+// The unmasked bucket of the cell of (x, y, z) (see Cells, Buckets).
+__device__ __forceinline__ unsigned cell_hash(float x, float y, float z,
+                                              double inv_c) {
+  const int i = __double2int_rd(__dmul_rn(static_cast<double>(x), inv_c));
+  const int j = __double2int_rd(__dmul_rn(static_cast<double>(y), inv_c));
+  const int k = __double2int_rd(__dmul_rn(static_cast<double>(z), inv_c));
+  return static_cast<unsigned>(i) + static_cast<unsigned>(j) * kP2 +
+         static_cast<unsigned>(k) * kP3;
+}
+
+// #points of pts[a, e) with 0 < d2 <= r2 from s
+__device__ __forceinline__ int count_run(const float4* pts, int a, int e,
+                                         const float4& s, float r2) {
+  int c = 0;
+  for (int k = a; k < e; ++k) {
+    const float4 t = pts[k];
+    const float d = mrg::sqdist(s.x, s.y, s.z, t.x, t.y, t.z);
+    c += (d <= r2) & (d > 0.f);
   }
-  int count = 0;
-  for (int base = 0; base < m; base += mrg::kTile) {
-    const int len = min(mrg::kTile, m - base);
-    __syncthreads();
-    mrg::load_tile(tgt, base, len, tx, ty, tz);
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < len; ++k) {
-      const float d = mrg::sqdist(sx, sy, sz, tx[k], ty[k], tz[k]);
-      count += (d <= r2) & (d > 0.f);
+  return c;
+}
+
+// Dynamic shared memory: binned[n] float4, then ints: end[-1] = 0,
+// end[0, H) (bucket h holds binned[end[h - 1], end[h])), the scan's 32.
+__global__ void __launch_bounds__(kCoThreads)
+    count_kernel(const float* __restrict__ pts,
+                 const unsigned char* __restrict__ mask, int n,
+                 int hash_bits, double inv_c, float r2,
+                 int* __restrict__ out) {
+  extern __shared__ float4 binned[];
+  int* end = reinterpret_cast<int*>(binned + n) + 1;
+  const int nb = 1 << hash_bits;
+  int* scan_tmp = end + nb;
+  const unsigned hmask = static_cast<unsigned>(nb) - 1u;
+  const size_t b = blockIdx.y;
+  pts += b * n * 3;
+  if (mask != nullptr) mask += b * n;
+  out += b * n;
+  const int split = gridDim.x, part = blockIdx.x;
+
+  for (int h = threadIdx.x; h < nb; h += blockDim.x) end[h] = 0;
+  if (threadIdx.x == 0) end[-1] = 0;
+  // zeros for the masked lanes of this block's share of the row
+  for (int i = n * part / split + threadIdx.x; i < n * (part + 1) / split;
+       i += blockDim.x) {
+    if (!mrg::lane_valid(mask, i, n)) out[i] = 0;
+  }
+  __syncthreads();
+  // 1. the histogram of buckets
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    if (mrg::lane_valid(mask, i, n)) {
+      const float* p = pts + 3 * static_cast<size_t>(i);
+      atomicAdd(&end[cell_hash(p[0], p[1], p[2], inv_c) & hmask], 1);
     }
   }
-  if (active) out[b * n + i] = count;
+  __syncthreads();
+  // 2. bucket starts
+  mrg::block_scan_inplace(end, nb, scan_tmp);
+  // 3. the scatter: each bucket's cursor runs from its start to its end
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    if (mrg::lane_valid(mask, i, n)) {
+      const float* p = pts + 3 * static_cast<size_t>(i);
+      const float x = p[0], y = p[1], z = p[2];
+      const int at = atomicAdd(&end[cell_hash(x, y, z, inv_c) & hmask], 1);
+      binned[at] = make_float4(x, y, z, __int_as_float(i));
+    }
+  }
+  __syncthreads();
+  // 4. the points of the block's share of the buckets, in bucket order
+  // (every block orders a bucket's points its own way, so the shares are
+  // cut between buckets)
+  for (int q = end[nb * part / split - 1] + threadIdx.x;
+       q < end[nb * (part + 1) / split - 1]; q += blockDim.x) {
+    const float4 s = binned[q];
+    const unsigned h0 = cell_hash(s.x, s.y, s.z, inv_c);
+    int count = 0;
+#pragma unroll
+    for (int dz = -1; dz <= 1; ++dz) {
+#pragma unroll
+      for (int dy = -1; dy <= 1; ++dy) {
+        // buckets lo, lo + 1, lo + 2 (mod H): cells dx = -1, 0, 1
+        const int lo =
+            static_cast<int>((h0 + stencil_offset(-1, dy, dz)) & hmask);
+        if (lo + 3 <= nb) {
+          count += count_run(binned, end[lo - 1], end[lo + 2], s, r2);
+        } else {  // the run wraps past bucket H - 1
+          for (int k = 0; k < 3; ++k) {
+            const int h = (lo + k) & static_cast<int>(hmask);
+            count += count_run(binned, end[h - 1], end[h], s, r2);
+          }
+        }
+      }
+    }
+    out[__float_as_int(s.w)] = count;
+  }
 }
 
 // out lanes: [count, sx, sy, sz, xx, xy, xz, yy, yz, zz]
@@ -193,18 +338,45 @@ __global__ void __launch_bounds__(kMoThreads)
 
 }  // namespace
 
-// points (B, N, 3) sources and (B, M, 3) targets, contiguous f32 on the
-// device; r2 = radius^2 rounded to f32; for moments, src_mask (B, N) and
-// tgt_mask (B, M) bool on the device, each null for every lane. Each
-// returns cudaGetLastError().
-extern "C" int mrg_radius_count(const float* src, const float* tgt, int batch,
-                                int n, int m, float r2, int* out,
-                                void* stream) {
-  if (batch > 0 && n > 0) {
-    count_kernel<<<mrg::grid_for(batch, n), mrg::kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(src, tgt, n, m, r2,
-                                                         out);
+// count: points (B, N, 3), contiguous f32 on the device; mask (B, N)
+// bool on the device, null for every lane; H = 2^hash_bits buckets
+// (hash_bits >= 6); inv_c = 1/c (see Cells); r2 = radius^2 rounded to
+// f32; split = S blocks per row; out (B, N) int32.
+// moments: points (B, N, 3) sources and (B, M, 3) targets, contiguous f32
+// on the device; r2 as above; src_mask (B, N) and tgt_mask (B, M) bool on
+// the device, each null for every lane; out (B, N, 10) f32.
+// Each returns cudaGetLastError(), or cudaErrorInvalidValue for arguments
+// the kernel does not take.
+extern "C" int mrg_radius_count(const float* pts, const unsigned char* mask,
+                                int batch, int n, int hash_bits, double inv_c,
+                                float r2, int split, int* out, void* stream) {
+  if (batch <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  if (hash_bits < kMinHashBits || hash_bits > 24 || split < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const size_t smem = 16 * static_cast<size_t>(n) +
+                      4 * ((static_cast<size_t>(1) << hash_bits) + 33);
+  // the kernel may take all the shared memory a block can opt in to: set
+  // at the first launch on each device
+  static int most_on[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (most_on[dev] == 0) {
+    int most = 0;
+    cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    const cudaError_t set = cudaFuncSetAttribute(
+        count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (set != cudaSuccess) return static_cast<int>(set);
+    most_on[dev] = most;
+  }
+  if (smem > static_cast<size_t>(most_on[dev])) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  count_kernel<<<dim3(split, batch), kCoThreads, smem,
+                 static_cast<cudaStream_t>(stream)>>>(pts, mask, n, hash_bits,
+                                                      inv_c, r2, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,7 +17,6 @@ from typing import Optional, Tuple
 import torch
 
 from . import nn_kernel, stats_kernel
-from .cloud import pad_invalid
 
 
 def _as_batch(x: torch.Tensor) -> Tuple[torch.Tensor, tuple]:
@@ -67,11 +66,11 @@ def radius_count(points: torch.Tensor, mask: torch.Tensor,
                  radius: float) -> torch.Tensor:
     """Number of OTHER valid points within `radius` of each point
     (pcl::RadiusOutlierRemoval semantics); 0 for masked points."""
-    p, lead = _as_batch(pad_invalid(points, mask))
+    p, lead = _as_batch(points)
+    m = _mask_rows(mask)
     r2 = stats_kernel.radius_sq(radius)
     if p.device.type == "cpu":
-        c = stats_kernel.count_plain(p, p, r2)
+        c = stats_kernel.count_plain(p, m, r2)
     else:
-        c = stats_kernel.count_cuda(p, p, r2)
-    c = c.reshape(lead + (points.shape[-2],))
-    return torch.where(mask, c, torch.zeros_like(c))
+        c = stats_kernel.count_cuda(p, m, r2)
+    return c.reshape(lead + (points.shape[-2],))

@@ -29,10 +29,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # C signatures of the entry points: pointers (and the stream) as c_void_p,
 # or ctypes would pass them as 32-bit ints
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_double
 SIGNATURES = {
     "mrg_nn": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
-    "mrg_radius_count": (_P, _P, _I, _I, _I, _F, _P, _P),
+    "mrg_radius_count": (_P, _P, _I, _I, _I, _D, _F, _I, _P, _P),
     "mrg_radius_moments": (_P, _P, _I, _I, _I, _F, _P, _P, _P, _P),
     "mrg_empty": (_P,),
 }

@@ -30,6 +30,24 @@ def distance_filter(cloud: PointCloud, near: float, far: float) -> PointCloud:
     return PointCloud(pad_invalid(cloud.points, mask), mask)
 
 
+def downsample_stage(cloud: PointCloud, cfg: PrefilterConfig,
+                     base_transform: Optional[torch.Tensor] = None
+                     ) -> PointCloud:
+    """The stages before outlier removal: base transform, distance filter,
+    downsample. Its output is what RADIUS removal counts on."""
+    if base_transform is not None:
+        cloud = cloud.transformed(base_transform)
+    if cfg.enable_distance_filter:
+        cloud = distance_filter(cloud, cfg.distance_near_thresh,
+                                cfg.distance_far_thresh)
+    if cfg.downsample_method in ("VOXELGRID", "APPROX_VOXELGRID"):
+        return voxel.voxel_downsample(
+            cloud, cfg.downsample_resolution,
+            min_points=cfg.downsample_min_points_per_voxel,
+            capacity=cfg.capacity_filtered_points, absolute_origin=True)
+    return compact(cloud, cfg.capacity_filtered_points)
+
+
 def prefilter(cloud: PointCloud, cfg: PrefilterConfig,
               base_transform: Optional[torch.Tensor] = None,
               ang_vel: Optional[torch.Tensor] = None,
@@ -42,18 +60,7 @@ def prefilter(cloud: PointCloud, cfg: PrefilterConfig,
     if cfg.enable_deskewing and ang_vel is not None \
             and point_time_frac is not None:
         raise NotImplementedError(f"deskewing is {_LATER}")
-    if base_transform is not None:
-        cloud = cloud.transformed(base_transform)
-    if cfg.enable_distance_filter:
-        cloud = distance_filter(cloud, cfg.distance_near_thresh,
-                                cfg.distance_far_thresh)
-    if cfg.downsample_method in ("VOXELGRID", "APPROX_VOXELGRID"):
-        cloud = voxel.voxel_downsample(
-            cloud, cfg.downsample_resolution,
-            min_points=cfg.downsample_min_points_per_voxel,
-            capacity=cfg.capacity_filtered_points, absolute_origin=True)
-    else:
-        cloud = compact(cloud, cfg.capacity_filtered_points)
+    cloud = downsample_stage(cloud, cfg, base_transform)
     if cfg.outlier_removal_method == "RADIUS":
         counts = knn.radius_count(cloud.points, cloud.mask, cfg.radius_radius)
         mask = cloud.mask & (counts >= cfg.radius_min_neighbors)

@@ -1,27 +1,28 @@
 """Radius-gated neighbourhood statistics: the CUDA kernels
 (csrc/radius_stats.cu) and their plain PyTorch versions.
 
-Counterpart of the JAX package's ops/pallas_stats.py. Every function takes
-a batch of source clouds (B, N, 3) and target clouds (B, M, 3), and
-r2 = radius^2 as a float32 (`radius_sq`). Masked targets must sit at
-PAD_VALUE, unless the caller leaves them out (below):
+Counterpart of the JAX package's ops/pallas_stats.py. r2 = radius^2 as a
+float32 (`radius_sq`).
 
-- count:   (B, N) int32, #targets with 0 < d2 <= r2 (self and exact
-           duplicates excluded);
-- moments: (B, N, 10) f32 lanes [count, sx, sy, sz, xx, xy, xz, yy, yz,
-           zz], raw sums over targets with d2 <= r2 (self included).
-
-Lanes that take part (moments only; count sweeps every lane). `src_mask`
-(B, N) and `tgt_mask` (B, M) are bool masks on the clouds' device; None
-means every lane. A lane takes part when its mask is set. Only targets
-that take part are summed, and a source lane that does not gets all-zero
-moments without being computed. On a source lane that takes part, the
-count is the Pallas kernel's and the sums are taken in the same ascending
-target order. On a masked-out source lane the moments may
-differ from the JAX package's, and no caller reads them:
-- `knn.radius_count` (count) zeroes masked lanes;
-- `covariance.estimate_covariances_radius` (moments) gives masked lanes
-  the identity covariance.
+- count (`count_cuda`, `count_plain`): one cloud (B, N, 3) and its mask
+  (B, N) bool on the cloud's device, None for every lane. -> (B, N)
+  int32: per valid lane, the other valid lanes with 0 < d2 <= r2 (self
+  and exact duplicates excluded), the Pallas kernel's count; a masked
+  lane takes no part, whatever it holds, and gets 0. The kernel bins a
+  row in shared memory, so a row holds at most `COUNT_MAX_LANES` lanes
+  (`count_cuda` raises above it); the plain version sweeps every pair.
+- moments: source clouds (B, N, 3), target clouds (B, M, 3) ->
+  (B, N, 10) f32 lanes [count, sx, sy, sz, xx, xy, xz, yy, yz, zz], raw
+  sums over targets with d2 <= r2 (self included). `src_mask` (B, N) and
+  `tgt_mask` (B, M) are bool masks on the clouds' device; None means
+  every lane, and masked targets must then sit at PAD_VALUE. Only
+  targets that take part are summed, and a source lane that does not
+  gets all-zero moments without being computed. On a source lane that
+  takes part the sums are taken in the Pallas kernel's ascending target
+  order. On a masked-out source lane the moments may differ from the JAX
+  package's, and no caller reads them:
+  `covariance.estimate_covariances_radius` gives such lanes the identity
+  covariance.
 
 `moments_to_mean_cov` turns moments into mean and covariance with the
 reference's formula. `ops.knn.radius_count` and
@@ -30,6 +31,8 @@ reference's formula. `ops.knn.radius_count` and
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -39,6 +42,11 @@ from . import native
 from .nn_kernel import _shapes
 
 MOMENT_LANES = 10
+# the count kernel's shared memory: 16 B a lane and 4 B a bucket, within
+# the 227 KB (232448 B) that an H100 block can have
+COUNT_SHARED_BYTES = 232448
+COUNT_MIN_HASH_BITS = 6
+COUNT_MAX_LANES = 10423  # with H = 16384 buckets; see count_hash_bits
 
 
 def radius_sq(radius: float) -> float:
@@ -51,22 +59,69 @@ def radius_sq(radius: float) -> float:
     return float(r * r)
 
 
-def _launch(name: str, symbol: str, src, tgt, r2, out, *masks) -> None:
-    b, n, m = _shapes(src, tgt)
-    fn = getattr(native.library("radius_stats"), symbol)
-    with torch.cuda.device(src.device):
-        rc = fn(src.data_ptr(), tgt.data_ptr(), b, n, m, r2, *masks,
-                out.data_ptr(), native.stream_ptr(src.device))
-    native.check_rc(rc, name)
+def count_cell(r2: float) -> Tuple[float, float]:
+    """(c, inv_c): the count kernel's cell side c = max(r, 2^-60)
+    (1 + 2^-10), r = sqrt(r2), and 1/c, each rounded to float64. The
+    kernel puts a coordinate v in cell floor(v * inv_c), a float64
+    product; csrc/radius_stats.cu proves that two points
+    with float32 d2 <= r2 then lie at most one cell apart on every axis,
+    for any finite coordinates."""
+    r = math.sqrt(r2) if r2 > 0 else 0.0
+    c = max(r, 2.0 ** -60) * (1.0 + 2.0 ** -10)
+    return c, 1.0 / c
 
 
-def count_cuda(src: torch.Tensor, tgt: torch.Tensor, r2: float
-               ) -> torch.Tensor:
-    """Launch csrc/radius_stats.cu:count_kernel on CUDA tensors."""
-    b, n, _ = _shapes(src, tgt)
-    native.check_cuda_f32(src, tgt)
-    out = torch.empty((b, n), dtype=torch.int32, device=src.device)
-    _launch("count", "mrg_radius_count", src, tgt, r2, out)
+def _count_shared_bytes(n: int, hash_bits: int) -> int:
+    return 16 * n + 4 * ((1 << hash_bits) + 33)
+
+
+def count_hash_bits(n: int) -> int:
+    """log2 of the count kernel's buckets H for rows of n lanes: H >= 2n
+    (fewer collisions) where it fits the block's shared memory, else
+    H >= n; never below 64. Raises ValueError for rows that do not fit."""
+    for want in (2 * n, n):
+        bits = max(COUNT_MIN_HASH_BITS, (max(want, 1) - 1).bit_length())
+        if _count_shared_bytes(n, bits) <= COUNT_SHARED_BYTES:
+            return bits
+    raise ValueError(
+        f"count kernel: a row of {n} lanes needs "
+        f"{_count_shared_bytes(n, bits)} B of shared memory, more than "
+        f"the {COUNT_SHARED_BYTES} B of a block; at most "
+        f"{COUNT_MAX_LANES} lanes")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def count_split(device: torch.device, batch: int) -> int:
+    """Blocks per row, S: S x B blocks fill the card's SMs once."""
+    return max(1, min(16, _sm_count(device.index or 0) // max(batch, 1)))
+
+
+def _cloud_shape(points: torch.Tensor) -> Tuple[int, int]:
+    if points.ndim != 3 or points.shape[-1] != 3:
+        raise ValueError(f"expected (B,N,3), got {tuple(points.shape)}")
+    return points.shape[0], points.shape[1]
+
+
+def count_cuda(points: torch.Tensor, mask: Optional[torch.Tensor],
+               r2: float, split: Optional[int] = None) -> torch.Tensor:
+    """Launch csrc/radius_stats.cu:count_kernel on a CUDA tensor, with S =
+    `split` blocks per row (None: `count_split`)."""
+    b, n = _cloud_shape(points)
+    native.check_cuda_f32(points)
+    mp = native.mask_ptr(points.device, b, n, mask)
+    bits = count_hash_bits(n)
+    _, inv_c = count_cell(r2)
+    s = split or count_split(points.device, b)
+    out = torch.empty((b, n), dtype=torch.int32, device=points.device)
+    fn = native.library("radius_stats").mrg_radius_count
+    with torch.cuda.device(points.device):
+        rc = fn(points.data_ptr(), mp, b, n, bits, inv_c, r2, s,
+                out.data_ptr(), native.stream_ptr(points.device))
+    native.check_rc(rc, "count")
     count_cuda.launches += 1
     return out
 
@@ -84,7 +139,11 @@ def moments_cuda(src: torch.Tensor, tgt: torch.Tensor, r2: float,
     tm = native.mask_ptr(src.device, b, m, tgt_mask)
     out = torch.empty((b, n, MOMENT_LANES), dtype=torch.float32,
                       device=src.device)
-    _launch("moments", "mrg_radius_moments", src, tgt, r2, out, sm, tm)
+    fn = native.library("radius_stats").mrg_radius_moments
+    with torch.cuda.device(src.device):
+        rc = fn(src.data_ptr(), tgt.data_ptr(), b, n, m, r2, sm, tm,
+                out.data_ptr(), native.stream_ptr(src.device))
+    native.check_rc(rc, "moments")
     moments_cuda.launches += 1
     return out
 
@@ -103,12 +162,19 @@ def _sqdist_chunks(src, tgt, chunk):
         yield s, dx * dx + dy * dy + dz * dz
 
 
-def count_plain(src: torch.Tensor, tgt: torch.Tensor, r2: float,
-                chunk: int = 1024) -> torch.Tensor:
-    b, n, _ = _shapes(src, tgt)
-    out = torch.empty((b, n), dtype=torch.int32, device=src.device)
-    for s, d in _sqdist_chunks(src, tgt, chunk):
-        out[:, s:s + chunk] = ((d <= r2) & (d > 0)).sum(-1, dtype=torch.int32)
+def count_plain(points: torch.Tensor, mask: Optional[torch.Tensor],
+                r2: float, chunk: int = 1024) -> torch.Tensor:
+    """The same function in PyTorch ops: every pair, over source chunks.
+    Lanes that take no part are left out as targets and get 0."""
+    b, n = _cloud_shape(points)
+    out = torch.empty((b, n), dtype=torch.int32, device=points.device)
+    for s, d in _sqdist_chunks(points, points, chunk):
+        w = (d <= r2) & (d > 0)
+        if mask is not None:
+            w = w & mask[:, None, :]
+        out[:, s:s + chunk] = w.sum(-1, dtype=torch.int32)
+    if mask is not None:
+        out = out.masked_fill(~mask, 0)
     return out
 
 

@@ -6,7 +6,9 @@ machine with a card and without JAX (tests/conftest.py imports it):
 chip_smoke.py makes the same checks at the main path's full shapes.
 
 Tolerances: nn indices and d2 bitwise (both round d2 step by step with no
-FMA), counts exact, moments within the float32 summation bound of two
+FMA), counts exact (on voxel-grid rows of the front end's shape, one-cell
+rows, pairs at the radius across cell faces, duplicates, masked and
+all-masked rows), moments within the float32 summation bound of two
 orders (see chip_smoke.check_moments). With masks (B rows whose valid
 lanes end at different lanes, holes, a row without a valid lane; masked
 lanes padded or not), nn stays bitwise on every lane and moments hold on
@@ -130,8 +132,9 @@ def test_stats_kernels_match_plain(rng, dev, b, n):
     pts, mask = _cloud(rng, dev, b, n)
     p = pad_invalid(pts, mask).contiguous()
     r2 = stats_kernel.radius_sq(0.6)
-    assert torch.equal(stats_kernel.count_cuda(p, p, r2),
-                       stats_kernel.count_plain(p, p, r2))
+    for cloud, m in ((p, None), (p, mask), (pts, mask)):
+        assert torch.equal(stats_kernel.count_cuda(cloud, m, r2),
+                           stats_kernel.count_plain(cloud, m, r2))
     c_k, m_k, v_k = stats_kernel.moments_to_mean_cov(
         stats_kernel.moments_cuda(p, p, r2))
     c_p, m_p, v_p = stats_kernel.moments_to_mean_cov(
@@ -143,3 +146,92 @@ def test_stats_kernels_match_plain(rng, dev, b, n):
     assert float((m_k - m_p)[mask].abs().max()) <= tol_mean
     assert float((v_k - v_p)[mask].abs().max()) <= (
         2 * n_max * U32 * x * x + 2 * x * tol_mean)
+
+
+def _voxel_rows(rng, b=32, n=8192):
+    """The front end's count input in shape: rows of n voxel means (a
+    0.3 m grid on a ground plane and on walls, jittered), every lane
+    valid."""
+    g = np.stack(np.meshgrid(np.arange(-100, 100), np.arange(-100, 100),
+                             indexing="ij"), -1).reshape(-1, 2) * 0.3
+    rows = []
+    for _ in range(b):
+        ground = g[rng.choice(len(g), n // 2, replace=False)]
+        ground = np.concatenate([ground, np.full((n // 2, 1), -1.7)], 1)
+        wall = g[rng.choice(len(g), n - n // 2, replace=False)] / 3
+        wall = np.stack([np.full(len(wall), 12.0), wall[:, 0], wall[:, 1]],
+                        1)
+        rows.append(np.concatenate([ground, wall]))
+    pts = np.stack(rows) + rng.normal(0, 0.02, (b, n, 3))
+    return pts.astype(np.float32), np.ones((b, n), bool)
+
+
+def _one_cell_rows(rng, b=2, n=3000):
+    c, _ = stats_kernel.count_cell(stats_kernel.radius_sq(0.5))
+    pts = rng.uniform(0.01, 0.3, (b, n, 3)) + 7 * c
+    return pts.astype(np.float32), np.ones((b, n), bool)
+
+
+def _boundary_rows(rng, b=4, n=4096):
+    """Pairs about r = 0.5 m apart (within a few float32 steps of r^2 on
+    either side), each crossing a cell face, at up to +-45 m."""
+    c, _ = stats_kernel.count_cell(stats_kernel.radius_sq(0.5))
+    k = n // 2
+    v = rng.normal(size=(b, k, 3))
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    a = rng.integers(-89, 89, (b, k, 3)) * c - 0.25 * v
+    s = 0.5 * (1 + rng.integers(-4, 5, (b, k, 1)) * 2.0 ** -22)
+    pts = np.concatenate([a, a + s * v], 1)
+    return pts.astype(np.float32), np.ones((b, n), bool)
+
+
+def _uniform_rows(rng, b=2, n=8192):
+    """+-45 m, exact duplicates, a masked tail and an all-masked row."""
+    pts = rng.uniform(-45, 45, (b, n, 3)).astype(np.float32)
+    pts[:, n // 2:n // 2 + 256] = pts[:, :256]
+    mask = np.ones((b, n), bool)
+    mask[:, -n // 16:] = False
+    mask[-1] = False
+    return pts, mask
+
+
+_COUNT_CASES = {"voxel_rows": _voxel_rows, "one_cell": _one_cell_rows,
+                "boundary": _boundary_rows, "uniform": _uniform_rows}
+
+
+@pytest.mark.parametrize("case", sorted(_COUNT_CASES))
+def test_count_kernel_matches_plain(rng, dev, case):
+    """Exact on every lane, masked lanes 0, with the row's mask and with
+    None (every lane)."""
+    pts, mask = (torch.from_numpy(a).to(dev)
+                 for a in _COUNT_CASES[case](rng))
+    r2 = stats_kernel.radius_sq(0.5)
+    for m in (mask, None):
+        c_k = stats_kernel.count_cuda(pts, m, r2)
+        c_p = stats_kernel.count_plain(pts, m, r2)
+        torch.cuda.synchronize()
+        assert torch.equal(c_k, c_p)
+    assert (c_k.sum() > 0) and (
+        stats_kernel.count_cuda(pts, mask, r2)[~mask] == 0).all()
+
+
+@pytest.mark.parametrize("padded", [True, False], ids=["padded", "unpadded"])
+@pytest.mark.parametrize("sext,text,n,holes", _EXTENTS)
+def test_count_kernel_masks_match_plain(rng, dev, sext, text, n, holes,
+                                        padded):
+    p, mask = _extent_cloud(rng, dev, sext, n, holes, padded)
+    r2 = stats_kernel.radius_sq(0.5)
+    assert torch.equal(stats_kernel.count_cuda(p, mask, r2),
+                       stats_kernel.count_plain(p, mask, r2))
+
+
+def test_count_kernel_refuses_rows_beyond_shared_memory(dev):
+    pts = torch.zeros((1, stats_kernel.COUNT_MAX_LANES + 1, 3), device=dev)
+    launches = stats_kernel.count_cuda.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        stats_kernel.count_cuda(pts, None, 0.25)
+    assert stats_kernel.count_cuda.launches == launches
+    edge = torch.zeros((1, stats_kernel.COUNT_MAX_LANES, 3), device=dev)
+    edge[0, :, 0] = torch.arange(edge.shape[1], device=dev) * 0.25
+    assert torch.equal(stats_kernel.count_cuda(edge, None, 0.25),
+                       stats_kernel.count_plain(edge, None, 0.25))

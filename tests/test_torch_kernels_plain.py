@@ -301,12 +301,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         nn_kernel.nn_cuda(pts, pts)
     with pytest.raises(ValueError):
-        stats_kernel.count_cuda(pts, pts, 0.25)
+        stats_kernel.count_cuda(pts, None, 0.25)
     with pytest.raises(ValueError):
         stats_kernel.moments_cuda(pts, pts, 0.25)
     mask = torch.ones((1, 8), dtype=torch.bool)
     with pytest.raises(ValueError):
         nn_kernel.nn_cuda(pts, pts, mask, mask)
+    with pytest.raises(ValueError):
+        stats_kernel.count_cuda(pts, mask, 0.25)
 
 
 def test_mask_ptr_checks_the_mask():

@@ -1,7 +1,7 @@
 """Front-end throughput and a device profile of the PyTorch port, on a card.
 
     python tools/profile_front_end.py [--passes 4] [--profile]
-        [--tree DIR] [--poses FILE]
+        [--tree DIR] [--poses FILE] [--same-as FILE]
 
 Builds chip_smoke.py's world and configs (bench.py's production world,
 96 frames) and runs chip_smoke.front_end (prefilter -> run_batch, 32-frame
@@ -15,7 +15,8 @@ device and by host time. Needs a CUDA card.
 --tree runs the chip_smoke.py and mrg_slam_tpu_torch of another checkout
 (an unpacked `git archive` of an earlier commit), so that two versions
 run in turns on one card; --poses saves pass 1's poses (.npy) for a
-bitwise comparison between them.
+bitwise comparison between them, and --same-as FILE reports whether pass
+1's poses equal, bit for bit, those saved in FILE by another run.
 """
 
 import argparse
@@ -35,6 +36,7 @@ def main():
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--poses")
+    ap.add_argument("--same-as")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
 
@@ -55,11 +57,18 @@ def main():
         if i == 0:
             nn_launches = nn_kernel.nn_cuda.launches
             gn_iters = int(run.iterations.sum())
+            poses = run.poses.cpu().numpy()
             if args.poses:
-                np.save(args.poses, run.poses.cpu().numpy())
+                np.save(args.poses, poses)
     out = {"card": chip_smoke.card_line(), "tree": os.path.abspath(args.tree),
            "frames_per_s": fps, "block_walls_ms": walls,
            "gn_iterations": gn_iters, "nn_launches": nn_launches}
+    if args.same_as:
+        ref = np.load(args.same_as)
+        out["poses_bitwise_same_as"] = {
+            "file": args.same_as, "same": bool(
+                ref.shape == poses.shape
+                and (ref.view(np.uint32) == poses.view(np.uint32)).all())}
     wall_ms = 1e3 / float(np.median(fps[1:] or fps))
 
     if args.profile:
