@@ -27,10 +27,10 @@
 // around its own with mrg::sqdist and 0 < d2 <= r2, exactly the test of
 // the sweep. The grid is (S, B): every block bins the whole row and
 // S x B blocks fill the card once (one 197 KB block per SM; S = 4 at
-// B = 32). What bounds it on an H100: neither bytes (~1.3 us at B = 32)
-// nor FP32 operations (~0.1 us); it is latency. Timed by S on an H100
-// SXM (chip_smoke.py), the binning takes ~3/4 of a launch: its two
-// passes over the row wait on global loads and shared atomics.
+// B = 32). Bytes (~1.3 us at B = 32) and FP32 operations (~0.1 us) bound
+// it far below the ~31 us a launch takes on an H100 SXM; timed by S
+// (chip_smoke.py), the binning, two passes over the row with global
+// loads and shared atomics, takes ~3/4 of that.
 // ptxas (sm_90a): count_kernel 36 registers, no spills.
 //
 // Cells. Python (stats_kernel.count_cell) gives c = max(sqrt(r2), 2^-60)

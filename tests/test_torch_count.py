@@ -111,6 +111,14 @@ def _offsets_at(t, step, rng, n_try=100_000):
     return np.unique(np.concatenate(out), axis=0)
 
 
+def _axis_reach(t, step):
+    """The longest multiple of `step` whose float32 square is <= t."""
+    k = np.floor(np.sqrt(np.float64(t)) / step) + 1
+    while np.float32(k * step) * np.float32(k * step) > t:
+        k -= 1
+    return np.float32(k * step)
+
+
 @pytest.mark.parametrize("radius", [0.5, 0.3, 0.1])
 @pytest.mark.parametrize("scale,step", [(45.0, 2.0 ** -18),
                                         (1000.0, 2.0 ** -14)],
@@ -121,7 +129,10 @@ def test_count_cell_rule_holds_at_the_radius(rng, radius, scale, step):
     with the cells of `count_cell(t)`, the farthest pairs with d2 <= t
     lie at most one cell apart on every axis. At 45 m the pairs include
     many with d2 == t exactly; at 1 km the spacing of float32 coordinates
-    (2^-14 m) makes d2 a multiple of 2^-28, which t need not be."""
+    (2^-14 m) makes d2 a multiple of 2^-28, which t need not be. A
+    quarter of the pairs lie along one axis as long as d2 <= t allows,
+    from the last float32 step before a face: a cell side even 2^-22
+    below r fails here."""
     r2 = np.float32(sk.radius_sq(radius))
     for t in (np.nextafter(r2, np.float32(0)), r2,
               np.nextafter(r2, np.float32(1))):
@@ -139,6 +150,13 @@ def test_count_cell_rule_holds_at_the_radius(rng, radius, scale, step):
         # the offset, so b = a + offset crosses it wherever it moves
         face = rng.integers(-int(scale / c), int(scale / c), (m, 3)) * c
         share = rng.uniform(0.0, 1.0, (m, 3)) * np.abs(pick)
+        # a quarter of the pairs reach as far as a pair can: the longest
+        # offset along one axis, from the last float32 step before a face
+        along = rng.integers(0, 3, m // 4)
+        pick[1::4] = 0.0
+        pick[1::4][np.arange(m // 4), along] = _axis_reach(t, step) * \
+            rng.choice([-1, 1], m // 4)
+        share[1::4] = 0.0
         a = np.where(pick >= 0, face - share, face + share)
         a = (np.floor(a / step) * step).astype(np.float32)
         b = (a + pick).astype(np.float32)
@@ -146,6 +164,7 @@ def test_count_cell_rule_holds_at_the_radius(rng, radius, scale, step):
         d2 = _sqdist32(a, b)
         assert (d2 <= t).all()
         assert (d2[::2] == t).all() if step == 2.0 ** -18 else True
+        assert (d2[1::4] > np.float32(t) * np.float32(0.999)).all()
         ca = _cell_index(_t(a), inv_c).numpy()
         cb = _cell_index(_t(b), inv_c).numpy()
         assert (np.abs(ca - cb) <= 1).all()
