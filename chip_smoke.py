@@ -6,8 +6,8 @@
 Builds the hand-written kernels of `mrg_slam_tpu_torch/csrc/` for sm_90a,
 holds each one against its plain PyTorch version on the card at the shapes
 and on the inputs of the front end's main path (with and without the rows'
-masks, ragged rows included; count also on rows in one cell and pairs at
-the radius across cell faces), then drives the front end (prefilter ->
+masks, ragged rows included; count also on rows in one cell, pairs at
+the radius across cell faces and rows of the default capacity), then drives the front end (prefilter ->
 fused GICP odometry) at full width on bench.py's production world and
 checks its ATE against the JAX package's on the same frames. Any failed check
 raises. The last line of standard output is {"ok": true, "device":
@@ -21,6 +21,7 @@ Needs a CUDA card; without one it exits non-zero and prints no result.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -350,14 +351,15 @@ def launch_floor_ms(torch, native):
 
 
 def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt,
-                 count_pts, count_mask):
+                 count_pts, count_mask, count_long):
     """Hold every kernel against its plain version; time all three.
 
     `block_mask` marks the real points of `block_pts`, the first block
     after prefilter (frame 0 is the nn target, frame 1 its source); nn
     and moments get the rows' masks, as on the main path. Count runs
     before RADIUS removal, on the same block's voxel grid output
-    `count_pts` with its mask `count_mask`. The bounds count only what
+    `count_pts` with its mask `count_mask`; `count_long` is the same at
+    the port's default capacity (points, mask). The bounds count only what
     these inputs need: the pairs of real points for nn and moments (pad
     lanes' results are never read), the pairs within the radius for
     count (any exact search does at least those)."""
@@ -461,10 +463,18 @@ def kernel_phase(torch, dev, block_pts, block_mask, nn_src, nn_tgt,
         f"neighbours per point mean {float(c_per.mean()):.3f}, max "
         f"{int(c_per.max())}; a sweep of every valid pair would be bound "
         f"at {brute_ms:.4f} ms (operations)")
-    by_split = {s: graph_ms(torch, lambda s=s: sk.count_cuda(
-        count_pts, count_mask, r2c, split=s)) for s in (1, 2, 4, 8)}
-    log(f"# count device ms a launch by blocks per row S: {by_split} "
-        f"(default S = {sk.count_split(dev, count_pts.shape[0])})")
+    # the port's default capacity: rows longer than a block's shared
+    # memory holds, binned in global memory (exact on 8 rows, timed on 32)
+    long_pts, long_mask = count_long
+    check_count(torch, sk, long_pts[:8].contiguous(),
+                long_mask[:8].contiguous(), r2c, "default capacity")
+    long_ms = graph_ms(torch, lambda: sk.count_cuda(long_pts, long_mask,
+                                                    r2c))
+    long_lanes = long_mask.sum(-1)
+    log(f"# count at the default capacity ({long_pts.shape[1]} lanes, "
+        f"{int(long_lanes.min())}-{int(long_lanes.max())} valid a row, "
+        f"bins in global memory): == plain on 8 rows; {long_ms:.4f} ms a "
+        f"launch in a CUDA graph for {long_pts.shape[0]} rows")
     floor_ms = launch_floor_ms(torch, native)
     rows = []
     for name, src, fk, fp, flib, pairs, opp, extra, out_b, repl in (
@@ -546,6 +556,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing to run", file=sys.stderr)
         return 1
+    from mrg_slam_tpu_torch.config import PrefilterConfig
     from mrg_slam_tpu_torch.ops import native, nn_kernel, stats_kernel
     from mrg_slam_tpu_torch.ops import registration as reg
     from mrg_slam_tpu_torch.ops.cloud import PointCloud, pad_invalid
@@ -571,12 +582,17 @@ def main():
     # (moments) and one frame pair of it (nn, 8192^2)
     first = PointCloud(inp.raw[:BLOCK], inp.rmask[:BLOCK])
     vox = downsample_stage(first, inp.pre)
+    vox_long = downsample_stage(first, dataclasses.replace(
+        inp.pre, capacity_filtered_points=PrefilterConfig()
+        .capacity_filtered_points))
     blk = prefilter(first, inp.pre)
     block_pts = pad_invalid(blk.points, blk.mask).contiguous()
     nn_src = blk.points[1:2].contiguous()
     nn_tgt = block_pts[0:1].contiguous()
     rows = kernel_phase(torch, dev, block_pts, blk.mask, nn_src, nn_tgt,
-                        vox.points.contiguous(), vox.mask.contiguous())
+                        vox.points.contiguous(), vox.mask.contiguous(),
+                        (vox_long.points.contiguous(),
+                         vox_long.mask.contiguous()))
     src1 = reg.make_source(PointCloud(blk.points[1], blk.mask[1]),
                            inp.odo.registration)
     tgt0 = reg.make_target(PointCloud(blk.points[0], blk.mask[0]),

@@ -19,8 +19,9 @@
 // runs on the voxel grid's output, (32, 8192) with every lane valid and
 // ~1.5 neighbours within 0.5 m per point, so a sweep of all pairs tests
 // ~99.98 % pairs that cannot count. Each block bins its row's valid
-// points into cubic cells of side c >= r in shared memory (a hashed
-// counting sort: a histogram of H buckets with shared atomics, a block
+// points into cubic cells of side c >= r in shared memory (global memory
+// for rows too long for it; see Where the bins live) (a hashed counting
+// sort: a histogram of H buckets with shared atomics, a block
 // scan, a scatter of float4 (x, y, z, lane)), then answers the points of
 // its 1/S of the buckets, in bucket order so that the threads of a warp
 // look at the same cells. A point tests only the points of the 27 cells
@@ -28,10 +29,11 @@
 // the sweep. The grid is (S, B): every block bins the whole row and
 // S x B blocks fill the card once (one 197 KB block per SM; S = 4 at
 // B = 32). Bytes (~1.3 us at B = 32) and FP32 operations (~0.1 us) bound
-// it far below the ~31 us a launch takes on an H100 SXM; timed by S
-// (chip_smoke.py), the binning, two passes over the row with global
-// loads and shared atomics, takes ~3/4 of that.
-// ptxas (sm_90a): count_kernel 36 registers, no spills.
+// it far below the ~31 us a launch takes on an H100 SXM; timed once by S
+// (PERF.md), the binning, two passes over the row with global loads and
+// shared atomics, takes ~3/4 of that.
+// ptxas (sm_90a): count_kernel<false> and <true> 32 registers, 144 bytes
+// of static shared memory, no spills.
 //
 // Cells. Python (stats_kernel.count_cell) gives c = max(sqrt(r2), 2^-60)
 // (1 + 2^-10) and inv_c = 1/c, both rounded to float64; a coordinate v
@@ -74,10 +76,18 @@
 // neighbour is in a bucket visited. Hence every count equals the sweep's,
 // with no check of a candidate's own cell. Within a bucket the order
 // of points follows the atomics and changes from run to run; the counts
-// are integers and do not. A row of N points needs 16 N + 4 (H + 33)
-// bytes of shared memory (N = 8192: H = 16384, 196740 B), so a row of
-// more than 10423 lanes does not fit in an H100 block's 227 KB and the
-// wrapper refuses it. Degenerate rows are right and slow: N points in one
+// are integers and do not. H >= 2 N (`stats_kernel.count_hash_bits`).
+//
+// Where the bins live. A row's bins take bins_bytes = 16 N + 4 (H + 1)
+// bytes, rounded up to 16 (N = 8192: H = 16384, 196624 B). Where that
+// fits in a block's dynamic shared memory (the device's opt-in limit less
+// the kernel's static shared memory, queried once per device), the bins
+// are there (count_kernel<false>): rows of up to 8192 lanes on an H100.
+// A longer row (the port's default capacity is 32768) bins into the
+// block's own slice of a global scratch buffer that the wrapper
+// allocates (count_kernel<true>, the same code on another address space),
+// so every row length runs on the card; the atomics and scattered loads
+// then go through L2. Degenerate rows are right and slow: N points in one
 // cell cost N^2 tests.
 //
 // moments_kernel: FP32 instructions bound it, as for nn.cu. The distance
@@ -103,6 +113,7 @@ namespace {
 
 constexpr int kCoThreads = 1024;  // threads per count block
 constexpr int kMinHashBits = 6;   // H >= 64: the stencil's buckets differ
+constexpr int kMaxHashBits = 24;  // rows of at most 2^23 lanes
 constexpr unsigned kP2 = 0x9E3779C3u;  // bucket strides of cells along y
 constexpr unsigned kP3 = 0x85EBCA49u;  // and z; along x the stride is 1
 
@@ -149,17 +160,32 @@ __device__ __forceinline__ int count_run(const float4* pts, int a, int e,
   return c;
 }
 
-// Dynamic shared memory: binned[n] float4, then ints: end[-1] = 0,
-// end[0, H) (bucket h holds binned[end[h - 1], end[h])), the scan's 32.
+// The bins of a row (see Where the bins live): binned[n] float4, then
+// ints: end[-1] = 0, end[0, H) (bucket h holds binned[end[h - 1], end[h])).
+__host__ __device__ constexpr size_t bins_bytes(int n, int hash_bits) {
+  return (16 * static_cast<size_t>(n) +
+          4 * ((static_cast<size_t>(1) << hash_bits) + 1) + 15) /
+         16 * 16;
+}
+
+// kGlobalBins: the bins lie in `scratch`, bins_bytes per block, blocks in
+// (blockIdx.y, blockIdx.x) order; else in dynamic shared memory.
+template <bool kGlobalBins>
 __global__ void __launch_bounds__(kCoThreads)
     count_kernel(const float* __restrict__ pts,
                  const unsigned char* __restrict__ mask, int n,
                  int hash_bits, double inv_c, float r2,
-                 int* __restrict__ out) {
-  extern __shared__ float4 binned[];
+                 float4* __restrict__ scratch, int* __restrict__ out) {
+  extern __shared__ float4 shared_bins[];
+  __shared__ int scan_tmp[kCoThreads / 32 + 1];
+  float4* binned = shared_bins;
+  if constexpr (kGlobalBins) {
+    binned = scratch + (static_cast<size_t>(blockIdx.y) * gridDim.x +
+                        blockIdx.x) *
+                           (bins_bytes(n, hash_bits) / 16);
+  }
   int* end = reinterpret_cast<int*>(binned + n) + 1;
   const int nb = 1 << hash_bits;
-  int* scan_tmp = end + nb;
   const unsigned hmask = static_cast<unsigned>(nb) - 1u;
   const size_t b = blockIdx.y;
   pts += b * n * 3;
@@ -336,47 +362,95 @@ __global__ void __launch_bounds__(kMoThreads)
   }
 }
 
+// The most dynamic shared memory count_kernel<false> can take on the
+// current device: the opt-in limit less its static shared memory. The
+// kernel's attribute is raised to it at the first call on each device.
+cudaError_t count_shared_limit(size_t* most) {
+  static size_t most_on[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (most_on[dev] == 0) {
+    int optin = 0;
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return e;
+    cudaFuncAttributes attr;
+    e = cudaFuncGetAttributes(&attr, count_kernel<false>);
+    if (e != cudaSuccess) return e;
+    const int dyn = optin - static_cast<int>(attr.sharedSizeBytes);
+    e = cudaFuncSetAttribute(count_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dyn);
+    if (e != cudaSuccess) return e;
+    most_on[dev] = static_cast<size_t>(dyn);
+  }
+  *most = most_on[dev];
+  return cudaSuccess;
+}
+
+bool count_args_ok(int hash_bits, int split) {
+  return hash_bits >= kMinHashBits && hash_bits <= kMaxHashBits &&
+         split >= 1;
+}
+
 }  // namespace
 
 // count: points (B, N, 3), contiguous f32 on the device; mask (B, N)
 // bool on the device, null for every lane; H = 2^hash_bits buckets
-// (hash_bits >= 6); inv_c = 1/c (see Cells); r2 = radius^2 rounded to
-// f32; split = S blocks per row; out (B, N) int32.
+// (kMinHashBits <= hash_bits <= kMaxHashBits); inv_c = 1/c (see Cells);
+// r2 = radius^2 rounded to f32; split = S blocks per row; scratch: null,
+// or the global buffer of mrg_radius_count_scratch's size; out (B, N)
+// int32.
+// count_scratch: sets *bytes to the size of the scratch buffer count
+// needs for these arguments on the current device: 0 where a row's bins
+// fit in a block's shared memory, else B S bins_bytes.
 // moments: points (B, N, 3) sources and (B, M, 3) targets, contiguous f32
 // on the device; r2 as above; src_mask (B, N) and tgt_mask (B, M) bool on
 // the device, each null for every lane; out (B, N, 10) f32.
-// Each returns cudaGetLastError(), or cudaErrorInvalidValue for arguments
-// the kernel does not take.
+// Each returns a cudaError_t: cudaGetLastError() after a launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take.
+extern "C" int mrg_radius_count_scratch(int batch, int n, int hash_bits,
+                                        int split, size_t* bytes) {
+  *bytes = 0;
+  if (batch <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+  if (!count_args_ok(hash_bits, split)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  size_t most = 0;
+  const cudaError_t e = count_shared_limit(&most);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t bins = bins_bytes(n, hash_bits);
+  if (bins > most) {
+    *bytes = static_cast<size_t>(batch) * static_cast<size_t>(split) * bins;
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
 extern "C" int mrg_radius_count(const float* pts, const unsigned char* mask,
                                 int batch, int n, int hash_bits, double inv_c,
-                                float r2, int split, int* out, void* stream) {
+                                float r2, int split, void* scratch, int* out,
+                                void* stream) {
   if (batch <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
-  if (hash_bits < kMinHashBits || hash_bits > 24 || split < 1) {
+  if (!count_args_ok(hash_bits, split)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = 16 * static_cast<size_t>(n) +
-                      4 * ((static_cast<size_t>(1) << hash_bits) + 33);
-  // the kernel may take all the shared memory a block can opt in to: set
-  // at the first launch on each device
-  static int most_on[64] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (most_on[dev] == 0) {
-    int most = 0;
-    cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    const cudaError_t set = cudaFuncSetAttribute(
-        count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    if (set != cudaSuccess) return static_cast<int>(set);
-    most_on[dev] = most;
+  const dim3 grid(split, batch);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (scratch != nullptr) {
+    count_kernel<true><<<grid, kCoThreads, 0, st>>>(
+        pts, mask, n, hash_bits, inv_c, r2, static_cast<float4*>(scratch),
+        out);
+  } else {
+    size_t most = 0;
+    const cudaError_t e = count_shared_limit(&most);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const size_t bins = bins_bytes(n, hash_bits);
+    if (bins > most) return static_cast<int>(cudaErrorInvalidValue);
+    count_kernel<false><<<grid, kCoThreads, bins, st>>>(
+        pts, mask, n, hash_bits, inv_c, r2, nullptr, out);
   }
-  if (smem > static_cast<size_t>(most_on[dev])) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  count_kernel<<<dim3(split, batch), kCoThreads, smem,
-                 static_cast<cudaStream_t>(stream)>>>(pts, mask, n, hash_bits,
-                                                      inv_c, r2, out);
   return static_cast<int>(cudaGetLastError());
 }
 

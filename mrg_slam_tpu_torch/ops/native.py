@@ -33,7 +33,8 @@ _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_double
 SIGNATURES = {
     "mrg_nn": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
-    "mrg_radius_count": (_P, _P, _I, _I, _I, _D, _F, _I, _P, _P),
+    "mrg_radius_count": (_P, _P, _I, _I, _I, _D, _F, _I, _P, _P, _P),
+    "mrg_radius_count_scratch": (_I, _I, _I, _I, _P),
     "mrg_radius_moments": (_P, _P, _I, _I, _I, _F, _P, _P, _P, _P),
     "mrg_empty": (_P,),
 }

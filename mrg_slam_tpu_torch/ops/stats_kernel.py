@@ -9,8 +9,10 @@ float32 (`radius_sq`).
   int32: per valid lane, the other valid lanes with 0 < d2 <= r2 (self
   and exact duplicates excluded), the Pallas kernel's count; a masked
   lane takes no part, whatever it holds, and gets 0. The kernel bins a
-  row in shared memory, so a row holds at most `COUNT_MAX_LANES` lanes
-  (`count_cuda` raises above it); the plain version sweeps every pair.
+  row in a block's shared memory where it fits (rows of up to 8192 lanes
+  on an H100) and in a global scratch buffer otherwise, so rows of any
+  length up to 2^23 lanes run on the card; the plain version sweeps
+  every pair.
 - moments: source clouds (B, N, 3), target clouds (B, M, 3) ->
   (B, N, 10) f32 lanes [count, sx, sy, sz, xx, xy, xz, yy, yz, zz], raw
   sums over targets with d2 <= r2 (self included). `src_mask` (B, N) and
@@ -31,6 +33,7 @@ reference's formula. `ops.knn.radius_count` and
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import Optional, Tuple
@@ -42,11 +45,9 @@ from . import native
 from .nn_kernel import _shapes
 
 MOMENT_LANES = 10
-# the count kernel's shared memory: 16 B a lane and 4 B a bucket, within
-# the 227 KB (232448 B) that an H100 block can have
-COUNT_SHARED_BYTES = 232448
-COUNT_MIN_HASH_BITS = 6
-COUNT_MAX_LANES = 10423  # with H = 16384 buckets; see count_hash_bits
+# the count kernel's buckets: H = 2^bits, kMinHashBits <= bits <=
+# kMaxHashBits of csrc/radius_stats.cu
+COUNT_MIN_HASH_BITS, COUNT_MAX_HASH_BITS = 6, 24
 
 
 def radius_sq(radius: float) -> float:
@@ -71,23 +72,14 @@ def count_cell(r2: float) -> Tuple[float, float]:
     return c, 1.0 / c
 
 
-def _count_shared_bytes(n: int, hash_bits: int) -> int:
-    return 16 * n + 4 * ((1 << hash_bits) + 33)
-
-
 def count_hash_bits(n: int) -> int:
-    """log2 of the count kernel's buckets H for rows of n lanes: H >= 2n
-    (fewer collisions) where it fits the block's shared memory, else
-    H >= n; never below 64. Raises ValueError for rows that do not fit."""
-    for want in (2 * n, n):
-        bits = max(COUNT_MIN_HASH_BITS, (max(want, 1) - 1).bit_length())
-        if _count_shared_bytes(n, bits) <= COUNT_SHARED_BYTES:
-            return bits
-    raise ValueError(
-        f"count kernel: a row of {n} lanes needs "
-        f"{_count_shared_bytes(n, bits)} B of shared memory, more than "
-        f"the {COUNT_SHARED_BYTES} B of a block; at most "
-        f"{COUNT_MAX_LANES} lanes")
+    """log2 of the count kernel's buckets H for rows of n lanes: H >= 2n,
+    never below 64. Raises ValueError for rows of more than 2^23 lanes."""
+    bits = max(COUNT_MIN_HASH_BITS, (2 * max(n, 1) - 1).bit_length())
+    if bits > COUNT_MAX_HASH_BITS:
+        raise ValueError(f"count kernel: a row of {n} lanes is longer "
+                         f"than {1 << (COUNT_MAX_HASH_BITS - 1)}")
+    return bits
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,20 +99,28 @@ def _cloud_shape(points: torch.Tensor) -> Tuple[int, int]:
 
 
 def count_cuda(points: torch.Tensor, mask: Optional[torch.Tensor],
-               r2: float, split: Optional[int] = None) -> torch.Tensor:
-    """Launch csrc/radius_stats.cu:count_kernel on a CUDA tensor, with S =
-    `split` blocks per row (None: `count_split`)."""
+               r2: float) -> torch.Tensor:
+    """Launch csrc/radius_stats.cu:count_kernel on a CUDA tensor, S =
+    `count_split` blocks per row. A row whose bins do not fit in a block's
+    shared memory bins into a scratch buffer allocated here."""
     b, n = _cloud_shape(points)
     native.check_cuda_f32(points)
     mp = native.mask_ptr(points.device, b, n, mask)
     bits = count_hash_bits(n)
     _, inv_c = count_cell(r2)
-    s = split or count_split(points.device, b)
+    s = count_split(points.device, b)
     out = torch.empty((b, n), dtype=torch.int32, device=points.device)
-    fn = native.library("radius_stats").mrg_radius_count
+    lib = native.library("radius_stats")
+    nbytes = ctypes.c_size_t(0)
     with torch.cuda.device(points.device):
-        rc = fn(points.data_ptr(), mp, b, n, bits, inv_c, r2, s,
-                out.data_ptr(), native.stream_ptr(points.device))
+        native.check_rc(lib.mrg_radius_count_scratch(
+            b, n, bits, s, ctypes.byref(nbytes)), "count")
+        scratch = None if nbytes.value == 0 else torch.empty(
+            nbytes.value, dtype=torch.uint8, device=points.device)
+        rc = lib.mrg_radius_count(
+            points.data_ptr(), mp, b, n, bits, inv_c, r2, s,
+            None if scratch is None else scratch.data_ptr(),
+            out.data_ptr(), native.stream_ptr(points.device))
     native.check_rc(rc, "count")
     count_cuda.launches += 1
     return out

@@ -320,12 +320,19 @@ def test_binned_search_matches_plain(rng, case, few_buckets):
 
 
 def test_count_hash_bits_and_row_limit():
-    """H >= 2N where the row fits with it, else H >= N, at least 64; a
-    row beyond COUNT_MAX_LANES raises before any launch."""
+    """H >= 2N, at least 64, within the kernel's own bounds on its hash
+    bits (read from its source); a row beyond 2^23 lanes raises before
+    any launch. Rows too long for a block's shared memory are no longer
+    refused: they bin in global memory (tests/test_torch_cuda.py)."""
+    src = (CSRC / "radius_stats.cu").read_text()
+    for name, value in (("kMinHashBits", sk.COUNT_MIN_HASH_BITS),
+                        ("kMaxHashBits", sk.COUNT_MAX_HASH_BITS)):
+        assert int(re.search(rf"{name} = ([0-9]+)", src).group(1)) == value
     assert sk.count_hash_bits(1) == 6
     assert sk.count_hash_bits(1000) == 11
     assert sk.count_hash_bits(8192) == 14
-    assert sk.count_hash_bits(9000) == 14
-    assert sk.count_hash_bits(sk.COUNT_MAX_LANES) == 14
-    with pytest.raises(ValueError, match="shared memory"):
-        sk.count_hash_bits(sk.COUNT_MAX_LANES + 1)
+    assert sk.count_hash_bits(8193) == 15
+    assert sk.count_hash_bits(32768) == 16
+    assert sk.count_hash_bits(2 ** 23) == 24
+    with pytest.raises(ValueError, match="longer than"):
+        sk.count_hash_bits(2 ** 23 + 1)

@@ -6,10 +6,10 @@ machine with a card and without JAX (tests/conftest.py imports it):
 chip_smoke.py makes the same checks at the main path's full shapes.
 
 Tolerances: nn indices and d2 bitwise (both round d2 step by step with no
-FMA), counts exact (on voxel-grid rows of the front end's shape, one-cell
-rows, pairs at the radius across cell faces, duplicates, masked and
-all-masked rows), moments within the float32 summation bound of two
-orders (see chip_smoke.check_moments). With masks (B rows whose valid
+FMA), counts exact (on voxel-grid rows of the front end's shape and of
+the default capacity, one-cell rows, pairs at the radius across cell
+faces, duplicates, masked and all-masked rows), moments within the
+float32 summation bound of two orders (see chip_smoke.check_moments). With masks (B rows whose valid
 lanes end at different lanes, holes, a row without a valid lane; masked
 lanes padded or not), nn stays bitwise on every lane and moments hold on
 the valid lanes, with the fixed values on the masked lanes.
@@ -225,13 +225,22 @@ def test_count_kernel_masks_match_plain(rng, dev, sext, text, n, holes,
                        stats_kernel.count_plain(p, mask, r2))
 
 
-def test_count_kernel_refuses_rows_beyond_shared_memory(dev):
-    pts = torch.zeros((1, stats_kernel.COUNT_MAX_LANES + 1, 3), device=dev)
+@pytest.mark.parametrize("n", [8192, 8193, 32768])
+def test_count_kernel_long_rows_match_plain(rng, dev, n):
+    """Rows at the edge of a block's shared memory (8192 lanes bin there,
+    8193 in global memory) and at the port's default capacity
+    (`PrefilterConfig.capacity_filtered_points`, 32768), through
+    `knn.radius_count` as prefilter calls it: exact, with a masked tail."""
+    from mrg_slam_tpu_torch.config import PrefilterConfig
+
+    assert PrefilterConfig().capacity_filtered_points == 32768
+    pts, mask = _voxel_rows(rng, b=2, n=n)
+    mask[:, -n // 8:] = False
+    pts, mask = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
     launches = stats_kernel.count_cuda.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        stats_kernel.count_cuda(pts, None, 0.25)
-    assert stats_kernel.count_cuda.launches == launches
-    edge = torch.zeros((1, stats_kernel.COUNT_MAX_LANES, 3), device=dev)
-    edge[0, :, 0] = torch.arange(edge.shape[1], device=dev) * 0.25
-    assert torch.equal(stats_kernel.count_cuda(edge, None, 0.25),
-                       stats_kernel.count_plain(edge, None, 0.25))
+    got = knn.radius_count(pts, mask, 0.5)
+    assert stats_kernel.count_cuda.launches == launches + 1
+    want = stats_kernel.count_plain(pts, mask, stats_kernel.radius_sq(0.5))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert want.sum() > 0
