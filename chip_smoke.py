@@ -7,15 +7,31 @@ Builds the hand-written kernels of `mrg_slam_tpu_torch/csrc/` for sm_90a,
 holds each one against its plain PyTorch version on the card at the shapes
 and on the inputs of the front end's main path (with and without the rows'
 masks, ragged rows included; count also on rows in one cell, pairs at
-the radius across cell faces and rows of the default capacity), then drives the front end (prefilter ->
-fused GICP odometry) at full width on bench.py's production world and
-checks its ATE against the JAX package's on the same frames. Any failed check
-raises. The last line of standard output is {"ok": true, "device":
-{...}}; the line before it lists every kernel with its launches, error
-and times: "ms", "plain_ms" and "library_ms" are one call between CUDA
-events (the wrapper's host time included, whenever the card waits for
-it), and "device_ms" is the kernel's device time per launch in a CUDA
-graph.
+the radius across cell faces and rows of the default capacity), then
+drives two paths at full width on bench.py's production world:
+
+- the front end (prefilter -> fused GICP odometry), FRAMES frames, its
+  ATE checked against the JAX package's on the same frames;
+- full SLAM (bench.py:200-223): front end, `MrgSlam.process_scan` per
+  frame and `MrgSlam.optimization_tick` per block (keyframes -> batched
+  pair program -> dense LM), SLAM_FRAMES frames, once to warm up and once
+  timed. It prints frames/s, keyframes, loops, ATE after SLAM and of
+  odometry alone, and per tick the loop-closure and optimize ms, LM
+  iterations, pair rows, GN iterations per bucket and nn launches, and a
+  torch.profiler breakdown of the last tick. It fails without a loop,
+  with ATE, keyframes or loops outside their bounds around the JAX
+  package's numbers on the same frames, or if the timed pass's keyframe
+  poses differ by a bit from the warm pass's. nn is then held, bit for
+  bit, to its plain version at the pair program's shape (64 rows of
+  the run's keyframe pairs, ragged masks, frozen rows, stride-2 coarse
+  rows) and timed there.
+
+Any failed check raises. The last line of standard output is {"ok": true,
+"device": {...}}; the line before it lists every kernel with its
+launches, error and times: "ms", "plain_ms" and "library_ms" are one call
+between CUDA events (the wrapper's host time included, whenever the card
+waits for it), and "device_ms" is the kernel's device time per launch in
+a CUDA graph.
 
 Needs a CUDA card; without one it exits non-zero and prints no result.
 Imports nothing of JAX and nothing of the JAX package.
@@ -36,12 +52,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 # production scale of bench.py (RAW, FILTERED, BLOCK) and its world
-# (bench.py:166-168); depth is cut from 640 frames to FRAMES so the run
-# fits its time limit
+# (bench.py:166-168); depth is cut from 640 frames to FRAMES (front end)
+# and SLAM_FRAMES (full SLAM: 1.51 laps, past the first revisit) so the
+# run fits its time limit
 RAW, FILTERED, BLOCK, TRAJ_FRAMES, FRAMES = 131072, 8192, 32, 640, 96
+SLAM_FRAMES = 320
 # the JAX package's odometry ATE on the same world, configs and FRAMES
 # frames, on the CPU: `python tools/front_end_reference.py --frames 96`
 REF_ATE_M = 0.2813718731443308
+# the JAX package's full SLAM on the same world, configs and SLAM_FRAMES
+# frames, on the CPU: `python tools/slam_reference.py --frames 320`
+REF_SLAM = dict(ate_m=0.2663814268413071, ate_odom_m=0.49454696107988355,
+                keyframes=152, loops=32)
+PAIR_ROWS = 64  # the pair program's bucket cap at 8192 points
 # H100 SXM: 67 TFLOP/s float32 outside the tensor cores, 3.35 TB/s HBM
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -111,16 +134,16 @@ def bound(pairs, ops_per_pair, extra_ops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def build_world():
+def build_world(n_frames=SLAM_FRAMES):
     from mrg_slam_tpu_torch.io.synthetic import (SyntheticWorld,
                                                  circle_trajectory)
 
     world = SyntheticWorld.build(seed=11, extent=60.0, n_ground=400000,
                                  n_pillars=150, n_walls=40,
                                  max_points_per_scan=RAW, noise=0.02)
-    traj = circle_trajectory(TRAJ_FRAMES, radius=20.0, laps=3.02)[:FRAMES]
-    raw = np.full((FRAMES, RAW, 3), 1.0e6, np.float32)
-    rmask = np.zeros((FRAMES, RAW), bool)
+    traj = circle_trajectory(TRAJ_FRAMES, radius=20.0, laps=3.02)[:n_frames]
+    raw = np.full((n_frames, RAW, 3), 1.0e6, np.float32)
+    rmask = np.zeros((n_frames, RAW), bool)
     for i, p in enumerate(traj):
         s = world.scan(p, seed=i)[:RAW]
         raw[i, :len(s)] = s
@@ -152,11 +175,32 @@ def make_configs():
     return pre, odo
 
 
+def make_slam_config(odo):
+    """bench.py:119-147 with make_configs(RAW, FILTERED, keyframe_delta=1.1,
+    capacity_keyframes=128, capacity_edges=512) (bench.py:176-178)."""
+    from mrg_slam_tpu_torch.config import (LoopClosureConfig,
+                                           OptimizerConfig, SlamConfig)
+
+    return SlamConfig(
+        own_name="bench", multi_robot_names=("bench",),
+        keyframe_delta_trans=1.1, capacity_keyframes=128,
+        capacity_edges=512, capacity_keyframe_points=FILTERED,
+        registration=dataclasses.replace(
+            odo.registration, reg_maximum_iterations=16,
+            reg_stall_epsilon=0.01, reg_coarse_stride=2,
+            reg_coarse_iterations=10),
+        optimizer=OptimizerConfig(solver_backend="dense",
+                                  g2o_solver_num_iterations=64),
+        loop=dataclasses.replace(LoopClosureConfig(), capacity_candidates=4,
+                                 fitness_score_max_range=2.0),
+        robot_remove_points_radius=0.0)
+
+
 class FrontEndInputs(NamedTuple):
-    traj: np.ndarray   # (FRAMES, 7) ground-truth poses
-    raw: object        # (FRAMES, RAW, 3) float32 scans on the card
-    rmask: object      # (FRAMES, RAW) bool
-    stamps: object     # (FRAMES,) float32 seconds
+    traj: np.ndarray   # (SLAM_FRAMES, 7) ground-truth poses
+    raw: object        # (SLAM_FRAMES, RAW, 3) float32 scans on the card
+    rmask: object      # (SLAM_FRAMES, RAW) bool
+    stamps: object     # (SLAM_FRAMES,) float32 seconds
     pre: object        # PrefilterConfig
     odo: object        # ScanMatchingOdometryConfig
 
@@ -174,7 +218,7 @@ def front_end_inputs(torch, dev):
     pre, odo = make_configs()
     return FrontEndInputs(
         traj, torch.from_numpy(raw).to(dev), torch.from_numpy(rmask).to(dev),
-        torch.arange(FRAMES, dtype=torch.float32, device=dev) * 0.1, pre,
+        torch.arange(len(traj), dtype=torch.float32, device=dev) * 0.1, pre,
         odo)
 
 
@@ -549,6 +593,279 @@ def sync_cost(torch, odo, src, tgt):
         f"{min(out[False]) * 1e3:.3f} ms without)")
     return per
 
+class SlamRun(NamedTuple):
+    slam: object      # the MrgSlam after the last tick
+    ticks: list       # one dict per tick
+    wall: float       # seconds, first block to the last tick's end
+    growth: list      # (tick, node capacity, edge capacity) after growth
+
+
+def full_slam(torch, inp, slam_cfg, profile_tick=None):
+    """bench.py:200-223 through the port, on the first SLAM_FRAMES frames:
+    per block of BLOCK frames, prefilter and run_batch, process_scan per
+    frame (the front end's covariances reused, as bench.py does when
+    covariance_compatible) and one optimization_tick. With `profile_tick`
+    (a dict), the last tick runs under torch.profiler and the dict gets
+    its device time, wall and top ops."""
+    from mrg_slam_tpu_torch.models import odometry_fused as fused
+    from mrg_slam_tpu_torch.models.backend import MrgSlam
+    from mrg_slam_tpu_torch.ops import nn_kernel
+    from mrg_slam_tpu_torch.ops import registration as reg
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud
+    from mrg_slam_tpu_torch.ops.prefilter import prefilter
+
+    covs_ok = reg.covariance_compatible(inp.odo.registration,
+                                        slam_cfg.registration)
+    dev = inp.raw.device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam = MrgSlam(slam_cfg, device=dev)
+    carry = fused.init_carry(FILTERED, device=dev)
+    ticks, growth = [], []
+    for s in range(0, SLAM_FRAMES, BLOCK):
+        c = prefilter(PointCloud(inp.raw[s:s + BLOCK],
+                                 inp.rmask[s:s + BLOCK]), inp.pre)
+        carry, outs = fused.run_batch(inp.odo, carry, c.points, c.mask,
+                                      inp.stamps[s:s + BLOCK])
+        poses = outs.pose.cpu().numpy()  # one read per block
+        for i in range(poses.shape[0]):
+            slam.process_scan((s + i) * 0.1, poses[i],
+                              PointCloud(c.points[i], c.mask[i]),
+                              source_covs=outs.covs[i] if covs_ok else None)
+        cap0, nn0 = slam.db.graph.cap, nn_kernel.nn_cuda.launches
+        last = s + BLOCK >= SLAM_FRAMES
+        t1 = time.perf_counter()
+        if profile_tick is not None and last:
+            st = profiled_tick(torch, slam, (s + BLOCK) * 0.1, profile_tick)
+        else:
+            st = slam.optimization_tick(now=(s + BLOCK) * 0.1)
+        wall = time.perf_counter() - t1
+        if st is None:
+            raise AssertionError(f"tick {s // BLOCK}: no keyframe in its "
+                                 "block, nothing to do")
+        nn_ticks = nn_kernel.nn_cuda.launches - nn0
+        ticks.append(dict(
+            wall_ms=wall * 1e3, loop_closure_ms=st.loop_closure_us / 1e3,
+            optimize_ms=st.optimization_us / 1e3, lm_ms=st.lm_ms,
+            marginals_ms=st.marginals_ms, lm_iterations=st.iterations,
+            loops=st.num_loops, pair_rows=sum(r for r, _ in st.pair_buckets),
+            gn_iterations_per_bucket=[g for _, g in st.pair_buckets],
+            nn_launches=nn_ticks,
+            # the tick's host reads, counted from where the code reads:
+            # one per GN sweep and one per bucket (together the nn
+            # launches: each bucket's fitness pass stands for its read),
+            # one per LM iteration and the solve's packed read
+            host_reads=nn_ticks + st.iterations + 1))
+        if slam.db.graph.cap != cap0:
+            growth.append((s // BLOCK, slam.db.graph.cap["nodes"],
+                           slam.db.graph.cap["edges"]))
+    return SlamRun(slam, ticks, time.perf_counter() - t0, growth)
+
+
+def profiled_tick(torch, slam, now, out):
+    """One optimization_tick under torch.profiler: device time (the sum
+    of the device activities), wall, device activities and top ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = slam.optimization_tick(now=now)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    avg = prof.key_averages()
+    out.update(device_ms=sum(e.time_range.elapsed_us() for e in device)
+               / 1e3, profiled_wall_ms=wall * 1e3,
+               device_activities=len(device),
+               by_device=avg.table(sort_by="self_device_time_total",
+                                   row_limit=12),
+               by_host=avg.table(sort_by="self_cpu_time_total",
+                                 row_limit=12))
+    return st
+
+
+def slam_metrics(slam, traj):
+    """bench.py:227-236: keyframes, loops, ATE after SLAM and of odometry
+    alone at the keyframes' stamps."""
+    from mrg_slam_tpu_torch.utils.metrics import ate_rmse
+
+    own = sorted(slam.db.own_keyframes(), key=lambda k: k.stamp)
+    idx = [int(round(k.stamp / 0.1)) for k in own]
+    te = slam.trajectory()
+    if not np.isfinite(te).all():
+        raise AssertionError("full SLAM: keyframe poses not finite")
+    odo = np.stack([k.odom for k in own])
+    return dict(keyframes=len(slam.db.keyframes) + len(slam.db.new_keyframes),
+                loops=sum(1 for e in slam.db.edges if e.type == "loop"),
+                ate_m=ate_rmse(te[:, :3], traj[idx][:, :3]),
+                ate_odom_m=ate_rmse(odo[:, :3], traj[idx][:, :3]))
+
+
+def check_slam(m):
+    """The full-SLAM bounds around the JAX package's numbers."""
+    ref = REF_SLAM
+    bound_ate = max(ref["ate_m"] + 0.05, 1.2 * ref["ate_m"])
+    if m["loops"] < 1:
+        raise AssertionError("full SLAM closed no loop")
+    if not m["ate_m"] <= bound_ate:
+        raise AssertionError(f"full SLAM ATE {m['ate_m']:.4f} m > "
+                             f"{bound_ate:.4f} m")
+    if abs(m["keyframes"] - ref["keyframes"]) > 2:
+        raise AssertionError(f"full SLAM: {m['keyframes']} keyframes, "
+                             f"the JAX package {ref['keyframes']}")
+    if abs(m["loops"] - ref["loops"]) > max(2, 0.2 * ref["loops"]):
+        raise AssertionError(f"full SLAM: {m['loops']} loops, the JAX "
+                             f"package {ref['loops']}")
+
+
+def pair_rows(torch, slam):
+    """The pair program's nn inputs on PAIR_ROWS rows of the run's
+    keyframes: row i is the odometry edge-fitness row of keyframe i+1
+    onto i (the source moved into the target's frame by their graph
+    estimates), with both clouds' masks. -> (src, tgt, src_mask,
+    tgt_mask), tgt at PAD_VALUE on its masked lanes as the clouds are."""
+    from mrg_slam_tpu_torch.ops.cloud import pad_invalid
+    from mrg_slam_tpu_torch.utils import se3, se3np
+
+    kfs = sorted(slam.db.own_keyframes(), key=lambda k: k.stamp)
+    src, tgt, sm, tm = [], [], [], []
+    for a, b in zip(kfs[:PAIR_ROWS], kfs[1:PAIR_ROWS + 1]):
+        rel = se3np.pose_between(b.estimate(slam.db.graph),
+                                 a.estimate(slam.db.graph))
+        p = torch.from_numpy(rel).to(a.cloud.points.device)
+        src.append(se3.pose_apply(p, a.cloud.points))
+        sm.append(a.cloud.mask)
+        tgt.append(pad_invalid(b.cloud.points, b.cloud.mask))
+        tm.append(b.cloud.mask)
+    return tuple(torch.stack(x).contiguous() for x in (src, tgt, sm, tm))
+
+
+def pair_nn_phase(torch, slam, launches, ticks):
+    """nn at the pair program's shape: bitwise to nn_plain on every lane
+    of PAIR_ROWS real keyframe pairs with their ragged masks, with a
+    quarter of the rows frozen (every source lane masked, as the pair
+    program masks a finished row), and on the stride-2 coarse rows; then
+    its kernel row, timed on the rows as they are."""
+    from mrg_slam_tpu_torch.ops import nn_kernel as nk
+
+    src, tgt, sm, tm = pair_rows(torch, slam)
+    frozen = sm.clone()
+    frozen[::4] = False
+    check_nn(torch, nk, src, tgt, "pair rows", sm, tm)
+    check_nn(torch, nk, src, tgt, "pair rows, frozen", frozen, tm)
+    coarse = [x[:, ::2].contiguous() for x in (src, tgt, sm, tm)]
+    check_nn(torch, nk, coarse[0], coarse[1], "pair rows, coarse",
+             coarse[2], coarse[3])
+    err = check_nn(torch, nk, src, tgt, "pair rows", sm, tm)
+    n_src, n_tgt = sm.sum(-1).double(), tm.sum(-1).double()
+    pairs = float((n_src * n_tgt).sum())
+    log(f"# nn at the pair program's shape: {src.shape[0]} rows x "
+        f"{src.shape[1]} lanes onto {tgt.shape[1]}, real sources "
+        f"{int(n_src.min())}-{int(n_src.max())}, real targets "
+        f"{int(n_tgt.min())}-{int(n_tgt.max())}: bitwise == plain on every "
+        "lane, also with every 4th row frozen and on the stride-2 coarse "
+        "rows")
+    real_src = [s_[m] for s_, m in zip(src, sm)]
+    real_tgt = [t_[m] for t_, m in zip(tgt, tm)]
+
+    def lib_nn():
+        return [torch.cdist(a[None], b[None],
+                            compute_mode="donot_use_mm_for_euclid_dist"
+                            ).min(dim=-1)
+                for a, b in zip(real_src, real_tgt)]
+
+    def fk():
+        return nk.nn_cuda(src, tgt, sm, tm)
+
+    bms, by = bound(pairs, 9, 0, (src.numel() + tgt.numel()) * 4
+                    + src.shape[0] * src.shape[1] * 12)
+    row = dict(name="nn_pairs", route="cuda",
+               source="mrg_slam_tpu_torch/csrc/nn.cu",
+               replaces="mrg_slam_tpu/ops/pallas_nn.py:48",
+               launches=launches, max_abs_err=err, ms=cuda_ms(torch, fk),
+               device_ms=graph_ms(torch, fk),
+               plain_ms=cuda_ms(torch, lambda: nk.nn_plain(src, tgt, sm, tm)),
+               bound_ms=bms, bound_by=by, library_ms=cuda_ms(torch, lib_nn),
+               launches_per_tick=launches / len(ticks))
+    log(f"# nn_pairs: kernel {row['ms']:.4f} ms around one call "
+        f"({row['device_ms']:.4f} ms a launch in a CUDA graph), plain "
+        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+        f"bound {bms:.4f} ms ({by}); {launches} launches in the timed pass's "
+        f"ticks, {row['launches_per_tick']:.1f} a tick")
+    return row
+
+
+def slam_phase(torch, inp):
+    """Full SLAM twice (warm-up with the last tick profiled, then timed,
+    counts from 0 around the timed pass) -> (metrics, launches, timed
+    run)."""
+    from mrg_slam_tpu_torch.ops import nn_kernel, stats_kernel
+
+    slam_cfg = make_slam_config(inp.odo)
+    prof = {}
+    warm = full_slam(torch, inp, slam_cfg, profile_tick=prof)
+    counters = (nn_kernel.nn_cuda, stats_kernel.count_cuda,
+                stats_kernel.moments_cuda)
+    for fn in counters:
+        fn.launches = 0
+    run = full_slam(torch, inp, slam_cfg)
+    launches = dict(zip(("nn", "count", "moments"),
+                        (fn.launches for fn in counters)))
+    m = slam_metrics(run.slam, inp.traj)
+    fps = SLAM_FRAMES / run.wall
+    log(f"# full SLAM at full width: {SLAM_FRAMES} frames, {RAW} raw -> "
+        f"{FILTERED} filtered pts; timed pass {run.wall:.3f} s, {fps:.2f} "
+        f"frames/s (warm-up pass {SLAM_FRAMES / warm.wall:.2f}); "
+        f"{m['keyframes']} keyframes, {m['loops']} loops, ATE "
+        f"{m['ate_m']:.4f} m (odometry alone {m['ate_odom_m']:.4f} m); "
+        f"JAX reference {REF_SLAM}")
+    log(f"# store growth (tick, node capacity, edge capacity): {run.growth}")
+    for i, t in enumerate(run.ticks):
+        log(f"# tick {i}: {json.dumps(t)}")
+    back_nn = sum(t["nn_launches"] for t in run.ticks)
+    log(f"# launches in the timed pass: {launches}, nn in the ticks "
+        f"{back_nn}")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} never launched in full SLAM")
+    check_slam(m)
+    a, b = warm.slam.trajectory(), run.slam.trajectory()
+    if a.shape != b.shape or not (a.view(np.uint32) == b.view(np.uint32)
+                                  ).all():
+        raise AssertionError("full SLAM rerun: keyframe poses not bitwise "
+                             "identical to the warm-up pass")
+    log("# timed pass: keyframe poses bitwise identical to the warm-up "
+        "pass's")
+    timed_last = run.ticks[-1]["wall_ms"]
+    log(f"# last tick under torch.profiler (warm-up pass): device "
+        f"{prof['device_ms']:.3f} ms in {prof['device_activities']} "
+        f"activities, profiled wall {prof['profiled_wall_ms']:.3f} ms; the "
+        f"same tick unprofiled in the timed pass {timed_last:.3f} ms, device "
+        f"busy {prof['device_ms'] / timed_last:.3f} of it")
+    log(prof["by_device"])
+    log(prof["by_host"])
+    ticks = run.ticks
+    metrics = dict(
+        frames=SLAM_FRAMES, frames_per_s=fps, wall_s=run.wall, **m,
+        ref=REF_SLAM, growth=run.growth,
+        loop_closure_ms_per_tick=float(np.mean(
+            [t["loop_closure_ms"] for t in ticks])),
+        optimize_ms_per_tick=float(np.mean([t["optimize_ms"]
+                                            for t in ticks])),
+        lm_ms_per_tick=float(np.mean([t["lm_ms"] for t in ticks])),
+        marginals_ms_per_tick=float(np.mean([t["marginals_ms"]
+                                             for t in ticks])),
+        host_reads_per_tick=float(np.mean([t["host_reads"]
+                                           for t in ticks])),
+        lm_iterations_per_tick=float(np.mean([t["lm_iterations"]
+                                              for t in ticks])),
+        last_tick_device_ms=prof["device_ms"],
+        last_tick_wall_ms=timed_last, launches=launches,
+        nn_launches_in_ticks=back_nn)
+    return metrics, back_nn, run
+
 
 def main():
     import torch
@@ -573,7 +890,8 @@ def main():
 
     t0 = time.perf_counter()
     inp = front_end_inputs(torch, dev)
-    log(f"# production world: {FRAMES} of {TRAJ_FRAMES} frames (depth cut) "
+    log(f"# production world: {SLAM_FRAMES} of {TRAJ_FRAMES} frames (depth "
+        f"cut; the front end runs the first {FRAMES}) "
         f"x {int(inp.rmask.sum(1).float().mean())} raw pts, built in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -610,7 +928,7 @@ def main():
     pose_np = run1.poses.cpu().numpy()
     if pose_np.shape != (FRAMES, 7) or not np.isfinite(pose_np).all():
         raise AssertionError(f"poses {pose_np.shape} not finite")
-    ate = ate_rmse(pose_np[:, :3], inp.traj[:, :3])
+    ate = ate_rmse(pose_np[:, :3], inp.traj[:FRAMES, :3])
     gn_iters = int(run1.iterations.sum())
     log(f"# front end at full width: {FRAMES} frames, {RAW} raw -> "
         f"{FILTERED} filtered pts, {int(run1.keyframes.sum())} keyframes, "
@@ -650,12 +968,16 @@ def main():
 
     for r in rows:
         r["launches"] = launches[r["name"]]
+    slam_m, back_nn, slam_run = slam_phase(torch, inp)
+    rows.append(pair_nn_phase(torch, slam_run.slam, back_nn,
+                              slam_run.ticks))
     log(json.dumps({"frames_per_s": fps,
                     "pass1_frames_per_s": FRAMES / sum(run1.block_walls),
                     "ate_m": ate, "ref_ate_m": REF_ATE_M,
                     "frames": FRAMES, "gn_iterations": gn_iters,
                     "host_sync_ms_per_iter": sync_ms,
                     "stage_ms_per_frame": per_frame,
+                    "full_slam": slam_m,
                     "build_s": native.build_seconds}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

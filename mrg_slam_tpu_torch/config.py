@@ -1,14 +1,21 @@
-"""Configuration of the front end: prefiltering, registration, odometry.
+"""Configuration of the front end (prefiltering, registration, odometry)
+and of the single-robot back end (keyframes, loop closure, the pose-graph
+solver).
 
 Field names and defaults are those of the JAX package's dataclasses, which
-mirror the reference's canonical YAML (mrg_slam.yaml:41-110), so that a
+mirror the reference's canonical YAML (mrg_slam.yaml:41-243), so that a
 config written for one package reads unchanged in the other
-(`convert.config_from_fields`). `capacity_*` fields size the padded clouds.
+(`convert.config_from_fields`). `capacity_*` fields size the padded clouds
+and the graph stores. The GPS, IMU, floor and exchange configs are plain
+fields here: their processors and services are not ported yet, and the
+back end refuses a config that enables them (models/backend.py).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -79,3 +86,145 @@ class ScanMatchingOdometryConfig:
     downsample_resolution: float = 0.1
     downsample_min_points_per_voxel: int = 1
     registration: RegistrationConfig = field(default_factory=RegistrationConfig)
+
+
+@dataclass(frozen=True)
+class LoopClosureConfig:
+    """Loop-closure params of mrg_slam_component (mrg_slam.yaml:167-180)."""
+
+    candidate_max_xy_distance: float = 15.0
+    accum_distance_thresh_same_robot: float = 15.0
+    accum_distance_thresh_other_robot: float = 5.0
+    fitness_score_max_range: float = math.inf  # config/mrg_slam.yaml:172
+    fitness_score_thresh: float = 1.25
+    use_planar_registration_guess: bool = False
+    loop_closure_edge_robust_kernel: str = "Huber"
+    loop_closure_edge_robust_kernel_size: float = 1.0
+    enable_loop_closure_consistency_check: bool = True
+    loop_closure_consistency_max_delta_trans: float = 0.3
+    loop_closure_consistency_max_delta_angle: float = 0.0523599
+    # candidates matched per new keyframe per tick (the closest ones)
+    capacity_candidates: int = 8
+
+
+@dataclass(frozen=True)
+class InformationMatrixConfig:
+    """Mirrors information-matrix params (mrg_slam.yaml:215-224)."""
+
+    use_const_inf_matrix: bool = False
+    const_stddev_x: float = 0.5
+    const_stddev_q: float = 0.1
+    var_gain_a: float = 2.0
+    min_stddev_x: float = 0.1
+    max_stddev_x: float = 0.75
+    min_stddev_q: float = 0.05
+    max_stddev_q: float = 0.2
+    fitness_score_thresh: float = 1.25  # shared with loop config in reference
+
+
+@dataclass(frozen=True)
+class GpsConfig:
+    enable_gps: bool = False
+    gps_edge_robust_kernel: str = "NONE"
+    gps_edge_robust_kernel_size: float = 1.0
+    gps_edge_stddev_xy: float = 20.0
+    gps_edge_stddev_z: float = 5.0
+    gps_use_enu: bool = False
+    gps_enu_origin_from_msg: bool = True
+    gps_enu_origin: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    gps_time_tolerance: float = 0.2
+
+
+@dataclass(frozen=True)
+class ImuConfig:
+    enable_imu_orientation: bool = False
+    imu_orientation_edge_robust_kernel: str = "NONE"
+    imu_orientation_edge_stddev: float = 1.0
+    enable_imu_acceleration: bool = False
+    imu_acceleration_edge_robust_kernel: str = "NONE"
+    imu_acceleration_edge_stddev: float = 1.0
+    imu_time_tolerance: float = 0.2
+
+
+@dataclass(frozen=True)
+class FloorCoeffsConfig:
+    enable_floor_coeffs: bool = False
+    floor_edge_robust_kernel: str = "NONE"
+    floor_edge_stddev: float = 10.0
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """Pose-graph solver settings (g2o_* params, mrg_slam.yaml:152-155)."""
+
+    g2o_solver_type: str = "lm_var_cholmod"  # read for the lm/gn choice
+    g2o_solver_num_iterations: int = 512  # outer cap; stops on chi2 gain
+    g2o_verbose: bool = False
+    # LM stops once an accepted step gains less than this relative chi2
+    chi2_rel_tol: float = 1e-6
+    lm_initial_lambda: float = 1e-6
+    # dense | cg | chain | auto (dense while 6N+3P <= auto_dense_max_dofs);
+    # only dense is ported (graph/solve.py)
+    solver_backend: str = "auto"
+    auto_dense_max_dofs: int = 12288
+    cg_max_iterations: int = 256
+    cg_tol: float = 1e-6
+    # per-tick marginal covariances: none | approx (block-Jacobi) | exact
+    # (dense H^-1) | cg | auto (exact up to 4096 dofs, cg beyond)
+    per_tick_marginals: str = "auto"
+    chordal_init: bool = False
+
+
+@dataclass(frozen=True)
+class GraphExchangeConfig:
+    """Multi-robot exchange params (mrg_slam.yaml:226-231)."""
+
+    graph_exchange_mode: str = "PATH_PROXIMITY"
+    graph_request_min_accum_dist: float = 2.0
+    graph_request_max_robot_dist: float = 50.0
+    graph_request_min_time_delay: float = 2.0
+
+
+@dataclass(frozen=True)
+class SlamConfig:
+    """Mirrors mrg_slam_component params (mrg_slam.yaml:126-243)."""
+
+    enable_mrg_slam: bool = True
+    own_name: str = "atlas"
+    multi_robot_names: Tuple[str, ...] = ("atlas", "bestla")
+    robot_remove_points_radius: float = 2.0
+    init_pose: Tuple[float, float, float, float, float, float] = (
+        0.0, 0.0, 0.0, 0.0, 0.0, 0.0)  # x y z yaw pitch roll (launch order)
+    enable_fill_first_cloud: bool = False
+    fill_first_cloud_radius: float = 5.0
+    fill_first_cloud_simple: bool = False
+    max_keyframes_per_update: int = 10000
+    keyframe_delta_trans: float = 1.0
+    keyframe_delta_angle: float = 0.5236
+    use_custom_inf_matrix_first_node: bool = True
+    custom_inf_matrix_first_node_stddev: Tuple[float, ...] = (
+        0.75, 0.75, 0.75, 0.1, 0.1, 0.1)
+    odometry_edge_robust_kernel: str = "NONE"
+    odometry_edge_robust_kernel_size: float = 1.0
+    graph_update_interval: float = 3.0
+    map_cloud_update_interval: float = 5.0
+    map_cloud_resolution: float = 0.1
+    map_cloud_min_points_per_voxel: int = 1
+    map_cloud_distance_far_thresh: float = 10000.0
+    result_dir: str = ""
+
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    loop: LoopClosureConfig = field(default_factory=LoopClosureConfig)
+    inf_matrix: InformationMatrixConfig = field(
+        default_factory=InformationMatrixConfig)
+    registration: RegistrationConfig = field(
+        default_factory=RegistrationConfig)
+    gps: GpsConfig = field(default_factory=GpsConfig)
+    imu: ImuConfig = field(default_factory=ImuConfig)
+    floor_coeffs: FloorCoeffsConfig = field(default_factory=FloorCoeffsConfig)
+    exchange: GraphExchangeConfig = field(
+        default_factory=GraphExchangeConfig)
+
+    capacity_keyframes: int = 2048
+    capacity_edges: int = 8192
+    capacity_keyframe_points: int = 8192  # stored per-keyframe cloud budget

@@ -1,0 +1,156 @@
+"""Batched cloud-pair execution for the back-end tick.
+
+Counterpart of the JAX package's models/pair_runner.py. The reference
+back end runs many independent cloud-against-cloud operations per tick,
+each a serial registration or kd-tree pass: a fitness pass for each new
+graph edge's information matrix (information_matrix_calculator.cpp:46-81),
+one registration per loop candidate (loop_detector.cpp:97-188) and two
+more for the consistency check (:190-303). Here every pair of a tick is a
+row of `ops.registration.align_pairs_packed`, whose nn sweeps run all rows
+of a bucket in one launch of the nn kernel:
+
+- each keyframe's GICP covariances are computed once and kept on the
+  keyframe (`PairRunner.gicp`), or handed over by the front end;
+- a bucket's rows need no padding: nothing recompiles for a new batch
+  size, and a finished row costs its nn blocks nothing
+  (registration._live_lanes).
+
+The bucket cap and the speculation budget keep the JAX package's values,
+which were measured on a TPU; measuring them again on the H100 is open
+(ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from ..config import RegistrationConfig
+from ..ops import registration as reg
+from ..ops.cloud import PointCloud
+from ..ops.covariance import GICPCloud
+from .keyframe import KeyFrame
+
+
+@dataclasses.dataclass
+class PairRequest:
+    """One row of the tick's pair program.
+
+    `max_iters = 0` means evaluate only: no registration, just the fitness
+    of `source` moved by `init_pose` into `target` (edge information
+    weighting). `max_iters > 0` runs the Gauss-Newton first.
+    """
+
+    target: KeyFrame
+    source: KeyFrame
+    init_pose: np.ndarray
+    max_iters: int = 0
+    fitness_max_range: float = math.inf
+
+
+@dataclasses.dataclass
+class PairResult:
+    pose: np.ndarray
+    converged: bool
+    iterations: int
+    num_inliers: int
+    fitness_inf: float
+    fitness_range: float
+
+
+class PairRunner:
+    """Executes PairRequest batches through the pair program."""
+
+    MIN_BUCKET = 4
+    # rows per bucket: point-rows up to this budget (the JAX package's
+    # values, measured on a TPU: 64 rows of 8192 points)
+    ROW_POINTS_BUDGET = 524288           # rows above 4096 points
+    ROW_POINTS_BUDGET_SMALL = 1 << 20    # rows up to 4096 points
+    # point-rows of speculative consistency-check rows a tick may add
+    # before it detects loops in two phases (LoopDetector.detect)
+    FREE_ROW_POINTS = 64 * 1024
+    # keyframes per batched covariance pass
+    PREFETCH_BUCKET = 16
+
+    def __init__(self, reg_cfg: RegistrationConfig):
+        if not reg.is_gicp_like(reg_cfg.registration_method):
+            raise NotImplementedError(
+                f"registration method {reg_cfg.registration_method} "
+                f"{reg._VOXEL_LATER}")
+        self.reg_cfg = reg_cfg
+        # (rows, GN iterations of its slowest row) of each bucket run
+        # since the caller last cleared it
+        self.buckets: List[Tuple[int, int]] = []
+
+    def max_bucket(self, capacity: int) -> int:
+        budget = (self.ROW_POINTS_BUDGET_SMALL if capacity <= 4096
+                  else self.ROW_POINTS_BUDGET)
+        b = self.MIN_BUCKET
+        while b * 2 * capacity <= budget:
+            b *= 2
+        return b
+
+    def speculation_budget_rows(self, capacity: int) -> int:
+        return max(self.FREE_ROW_POINTS // max(capacity, 1),
+                   self.MIN_BUCKET)
+
+    # ------------------------------------------------------------------
+    def gicp(self, kf: KeyFrame) -> GICPCloud:
+        """The keyframe's GICP cloud (points, mask, covariances), made once
+        and kept on the keyframe."""
+        if kf.gicp is None:
+            kf.gicp = reg.make_source(kf.cloud, self.reg_cfg)
+        return kf.gicp
+
+    def prefetch_batch(self, kfs: List[KeyFrame]) -> None:
+        """Covariances of every keyframe that has none, PREFETCH_BUCKET
+        keyframes per batched pass of the moments kernel."""
+        todo = [k for k in kfs if k.gicp is None and k.cloud.capacity > 0]
+        for s in range(0, len(todo), self.PREFETCH_BUCKET):
+            chunk = todo[s: s + self.PREFETCH_BUCKET]
+            out = reg.make_source(PointCloud(
+                torch.stack([k.cloud.points for k in chunk]),
+                torch.stack([k.cloud.mask for k in chunk])), self.reg_cfg)
+            for i, k in enumerate(chunk):
+                k.gicp = GICPCloud(*(x[i] for x in out))
+
+    # ------------------------------------------------------------------
+    def run(self, requests: List[PairRequest]) -> List[PairResult]:
+        if not requests:
+            return []
+        cap = requests[0].target.cloud.capacity
+        step = self.max_bucket(cap)
+        out: List[PairResult] = []
+        for s in range(0, len(requests), step):
+            out.extend(self._run_bucket(requests[s: s + step]))
+        return out
+
+    def _run_bucket(self, requests: List[PairRequest]) -> List[PairResult]:
+        cap = requests[0].target.cloud.capacity
+        for r in requests:
+            if (r.target.cloud.capacity != cap
+                    or r.source.cloud.capacity != cap):
+                raise ValueError(
+                    "a bucket's keyframe clouds must share one capacity (got "
+                    f"{r.target.cloud.capacity}/{r.source.cloud.capacity}, "
+                    f"expected {cap})")
+        packed = reg.align_pairs_packed(
+            self.reg_cfg, [self.gicp(r.target) for r in requests],
+            [self.gicp(r.source) for r in requests],
+            np.stack([np.asarray(r.init_pose, np.float32)
+                      for r in requests]),
+            np.asarray([r.max_iters for r in requests], np.int32),
+            np.asarray([r.fitness_max_range for r in requests], np.float32))
+        packed = packed.cpu().numpy()  # the bucket's one read
+        self.buckets.append((len(requests), int(packed[:, 8].max())))
+        return [PairResult(pose=packed[i, :7],
+                           converged=bool(packed[i, 7] > 0.5),
+                           iterations=int(packed[i, 8]),
+                           num_inliers=int(packed[i, 9]),
+                           fitness_inf=float(packed[i, 10]),
+                           fitness_range=float(packed[i, 11]))
+                for i in range(len(requests))]

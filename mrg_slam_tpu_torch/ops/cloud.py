@@ -45,6 +45,14 @@ class PointCloud(NamedTuple):
         return PointCloud(torch.from_numpy(out).to(dev),
                           torch.from_numpy(mask).to(dev))
 
+    @staticmethod
+    def empty(capacity: int, device: DeviceLike = None) -> "PointCloud":
+        """A cloud of `capacity` padded lanes, none valid."""
+        dev = resolve_device(device)
+        return PointCloud(
+            torch.full((capacity, 3), PAD_VALUE, device=dev),
+            torch.zeros(capacity, dtype=torch.bool, device=dev))
+
     def transformed(self, pose: torch.Tensor) -> "PointCloud":
         """Rigid-transform valid points by a 7-vector pose; padding kept."""
         from ..utils import se3

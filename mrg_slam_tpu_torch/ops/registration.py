@@ -13,12 +13,18 @@ a Python loop that stops once the solve has converged (or stalled, or lost
 every correspondence with the stall exit on). Reading that flag is one host
 sync per Gauss-Newton iteration. The voxel-target family (VGICP, NDT) is
 not ported yet (ROADMAP.md queue 1 item 11).
+
+The back end's pair program (`align_pairs_packed`) runs B (target, source)
+pairs as rows of one batched Gauss-Newton, each row with its own budget
+and exits, where the JAX package maps `_align_impl` over the rows with
+`vmap`. The single-row path above stays as the front end runs it.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import RegistrationConfig
@@ -238,3 +244,192 @@ def align(params: RegistrationConfig, source: GICPCloud,
     the reference's reg_* parameters (registrations.cpp:34-43)."""
     return _align_impl(params, source, target, init_pose,
                        params.reg_maximum_iterations)
+
+
+# ---------------------------------------------------------------------------
+# the back end's pair program: B rows of one batched Gauss-Newton
+# ---------------------------------------------------------------------------
+
+class PairResults(NamedTuple):
+    """Pair-program outputs, one row per requested pair."""
+
+    pose: torch.Tensor           # (B, 7) final (initial, if max_iters = 0)
+    converged: torch.Tensor      # (B,) bool
+    iterations: torch.Tensor     # (B,) int32
+    num_inliers: torch.Tensor    # (B,) int32
+    fitness_inf: torch.Tensor    # (B,) mean NN sq-dist at `pose`, no gate
+    fitness_range: torch.Tensor  # (B,) the same, gated to fitness_max_range
+
+
+def _live_lanes(mask: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """The source lanes a sweep computes: a row that is done (or padded)
+    has none, so the nn kernel's blocks of that row leave at once. Its
+    outputs are discarded as `vmap(while_loop)` discards a finished row's,
+    so this changes no result (tests/test_torch_backend.py)."""
+    return mask & active[:, None]
+
+
+def _gn_rows(params: RegistrationConfig, src: GICPCloud, tgt: GICPCloud,
+             pose: torch.Tensor, active: torch.Tensor,
+             ridge: torch.Tensor):
+    """One linearization of every row -> (xi (B, 6), H (B, 6, 6),
+    mean error (B,), inliers (B,)); `_gn_step` over a batch of rows."""
+    sp = src.points
+    R = se3.pose_rotation(pose)[:, None]  # (B, 1, 3, 3)
+    p_world = se3.pose_apply(pose[:, None, :], sp)
+    sm = _live_lanes(src.mask, active)
+    _, idx, valid = knn.nn_within(p_world, sm, tgt.points, tgt.mask,
+                                  params.reg_max_correspondence_distance)
+    if params.reg_use_reciprocal_correspondences:
+        _, idx_back = knn.nearest_neighbor(tgt.points, p_world, sm,
+                                           src_mask=tgt.mask)
+        lanes = torch.arange(sp.shape[1], device=idx.device)
+        valid = valid & (torch.gather(idx_back, 1, idx) == lanes)
+    q = torch.gather(tgt.points, 1, idx[..., None].expand(-1, -1, 3))
+    Cq = torch.gather(tgt.covs, 1,
+                      idx[..., None, None].expand(-1, -1, 3, 3))
+    r = q - p_world
+    if params.registration_method != "ICP":
+        W = inv3x3(Cq + R @ src.covs @ R.transpose(-1, -2))
+    else:
+        W = inv3x3(Cq)
+    W = W * valid.to(W.dtype)[..., None, None]
+    Rskew = R @ se3.skew(sp)
+    J = torch.cat([-R.expand(Rskew.shape), Rskew], dim=-1)  # (B, N, 3, 6)
+    WJ = W @ J
+    H = torch.einsum("bnai,bnaj->bij", J, WJ)
+    b = torch.einsum("bnaj,bna->bj", WJ, r)
+    err = torch.einsum("bna,bnac,bnc->b", r, W, r)
+    n_in = valid.sum(-1, dtype=torch.int32)
+    xi = torch.linalg.solve_ex(H + ridge, -b).result
+    return xi, H, err / torch.clamp(n_in, min=1), n_in
+
+
+def _run_rows(params: RegistrationConfig, src: GICPCloud, tgt: GICPCloud,
+              pose: torch.Tensor, budget: torch.Tensor, go: bool):
+    """Batched Gauss-Newton from `pose` (B, 7), row b for at most
+    budget[b] iterations (an int32 tensor on the device; `go` says on the
+    host whether any is positive), with `_run_stage`'s exits per row. A
+    row that has finished freezes: its pose, iterations, flags, error,
+    inliers and H stay as they were, as `vmap` over a `while_loop` leaves
+    them. The one host read of a sweep is whether any row is active."""
+    dev = pose.device
+    nb = pose.shape[0]
+    eps = params.reg_transformation_epsilon
+    stall_eps = params.reg_stall_epsilon
+    it = torch.zeros(nb, dtype=torch.int32, device=dev)
+    done = torch.zeros(nb, dtype=torch.bool, device=dev)
+    dead = torch.zeros_like(done)
+    stall = torch.zeros_like(it)
+    err = torch.full((nb,), float("inf"), device=dev)
+    n_in = torch.zeros_like(it)
+    H = torch.zeros(nb, 6, 6, device=dev)
+    ridge = hessian_ridge(dev)
+    active = budget > 0
+    while go:
+        xi, H2, err2, n2 = _gn_rows(params, src, tgt, pose, active, ridge)
+        new_pose = se3.pose_retract(pose, xi)
+        conv = ((torch.linalg.vector_norm(xi[:, :3], dim=-1) < eps)
+                & (torch.linalg.vector_norm(xi[:, 3:], dim=-1) < eps))
+        improve = torch.where(torch.isfinite(err),
+                              (err - err2) / torch.clamp(err, min=1e-12),
+                              torch.full_like(err, float("inf")))
+        stall2 = torch.where(improve < stall_eps, stall + 1,
+                             torch.zeros_like(stall))
+        if stall_eps > 0:
+            conv = conv | ((stall2 >= 2) & (n2 > 0))
+            dead2 = n2 == 0
+        else:
+            dead2 = torch.zeros_like(dead)
+        a = active
+        pose = torch.where(a[:, None], new_pose, pose)
+        it = it + a.to(torch.int32)
+        done = torch.where(a, conv, done)
+        dead = torch.where(a, dead2, dead)
+        stall = torch.where(a, stall2, stall)
+        err = torch.where(a, err2, err)
+        n_in = torch.where(a, n2, n_in)
+        H = torch.where(a[:, None, None], H2, H)
+        active = (it < budget) & ~done & ~dead
+        go = bool(active.any())  # the one host read of the sweep
+    return pose, it, done, err, n_in, H
+
+
+def _strided(c: GICPCloud, stride: int) -> GICPCloud:
+    return GICPCloud(*(x[:, ::stride].contiguous() for x in c))
+
+
+def _fitness_rows(moved: torch.Tensor, src_mask: torch.Tensor,
+                  tgt_points: torch.Tensor, tgt_mask: torch.Tensor,
+                  fr: torch.Tensor):
+    """Both fitness flavours from one NN pass: the mean NN squared
+    distance of the valid sources, ungated and gated to fr per row (inf
+    where no source counts)."""
+    d2, _ = knn.nearest_neighbor(moved, tgt_points, tgt_mask, src_mask)
+    ok = src_mask & torch.isfinite(d2)
+    inf = torch.full(d2.shape[:1], float("inf"), device=d2.device)
+    out = []
+    for sel in (ok, ok & (d2 <= (fr * fr)[:, None])):
+        n = sel.sum(-1, dtype=torch.int32)
+        total = torch.where(sel, d2, torch.zeros_like(d2)).sum(-1)
+        out.append(torch.where(n > 0, total / torch.clamp(n, min=1), inf))
+    return out
+
+
+def align_pairs_packed(params: RegistrationConfig, tgts, srcs, init_poses,
+                       max_iters, fitness_max_range) -> torch.Tensor:
+    """The back end's pair program: every cloud pair of a tick as a row.
+
+    `tgts`/`srcs` are length-B sequences of per-keyframe `GICPCloud`s of
+    one capacity, on one device; `init_poses` (B, 7), `max_iters` (B,)
+    ints and `fitness_max_range` (B,) floats are host arrays. Row b runs
+    the Gauss-Newton from init_poses[b] for at most max_iters[b]
+    iterations (0: evaluate only), coarse-to-fine as `_align_impl` does
+    (its coarse budget min(reg_coarse_iterations, max(mi - 1, 0))), then
+    takes both fitness flavours from one NN pass against the raw target
+    (getFitnessScore searches the target cloud whatever the method).
+
+    Returns one (B, 12) float32 tensor on the device, so the host reads a
+    bucket back at once:
+
+        row = [pose(7) | converged | iterations | num_inliers |
+               fitness_inf | fitness_range]
+    """
+    if not is_gicp_like(params.registration_method):
+        raise NotImplementedError(
+            f"registration method {params.registration_method} "
+            f"{_VOXEL_LATER}")
+    dev = tgts[0].points.device
+    tgt = GICPCloud(*(torch.stack(x) for x in zip(*tgts)))
+    src = GICPCloud(*(torch.stack(x) for x in zip(*srcs)))
+    mi = np.asarray(max_iters, np.int32)
+    stride = int(params.reg_coarse_stride)
+    budget_c = (np.minimum(np.int32(params.reg_coarse_iterations),
+                           np.maximum(mi - 1, 0)) if stride > 1
+                else np.zeros_like(mi))
+    budget_f = np.maximum(mi - budget_c, 0)
+    # the rows' inputs reach the device in one copy
+    host = np.concatenate([np.asarray(init_poses, np.float32).reshape(-1, 7),
+                           np.stack([budget_c, budget_f], 1),
+                           np.asarray(fitness_max_range,
+                                      np.float32)[:, None]], 1)
+    rows = torch.from_numpy(host.astype(np.float32)).to(dev)
+    pose, fr = rows[:, :7], rows[:, 9]
+    iters = torch.zeros(len(mi), dtype=torch.int32, device=dev)
+    if stride > 1:
+        pose, iters, *_ = _run_rows(params, _strided(src, stride),
+                                    _strided(tgt, stride), pose,
+                                    rows[:, 7].to(torch.int32),
+                                    bool((budget_c > 0).any()))
+    pose, it_f, done, _, n_in, _ = _run_rows(
+        params, src, tgt, pose, rows[:, 8].to(torch.int32),
+        bool((budget_f > 0).any()))
+    iters = iters + it_f
+    moved = se3.pose_apply(pose[:, None, :], src.points)
+    fit_inf, fit_r = _fitness_rows(moved, src.mask, tgt.points, tgt.mask,
+                                   fr)
+    res = PairResults(pose=pose, converged=done & (n_in > 0),
+                      iterations=iters, num_inliers=n_in,
+                      fitness_inf=fit_inf, fitness_range=fit_r)
+    return torch.cat([res.pose] + [v.to(torch.float32)[:, None]
+                                   for v in res[1:]], dim=1)

@@ -138,6 +138,36 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
     return _eye_like(W) + b[..., None, None] * W + c[..., None, None] * (W @ W)
 
 
+def quat_log(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion -> rotation vector (2 log q), Taylor form near 0 so
+    that forward-mode derivatives stay finite there."""
+    q = torch.where(q[..., 0:1] < 0, -q, q)  # w >= 0, theta in [0, pi]
+    w = torch.clamp(q[..., 0], -1.0, 1.0)
+    v2 = torch.sum(q[..., 1:4] * q[..., 1:4], dim=-1)
+    small = v2 < _EPS ** 2
+    v2_safe = torch.where(small, torch.ones_like(v2), v2)
+    vnorm = torch.sqrt(v2_safe)
+    main = 2.0 * torch.atan2(vnorm, w) / vnorm
+    w_safe = torch.clamp(w, min=0.5)
+    taylor = 2.0 / w_safe * (1.0 - v2 / (3.0 * w_safe * w_safe))
+    scale = torch.where(small, taylor, main)
+    return q[..., 1:4] * scale[..., None]
+
+
+def so3_left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    """J_l(w)^-1 = I - W/2 + k W^2."""
+    theta2 = torch.sum(w * w, dim=-1)
+    small = theta2 < _EPS ** 2
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(theta2_safe)
+    k = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - (theta * torch.sin(theta))
+         / (2.0 * (1.0 - torch.cos(theta)))) / theta2_safe)
+    W = skew(w)
+    return _eye_like(W) - 0.5 * W + k[..., None, None] * (W @ W)
+
+
 # -- 7-vector poses -----------------------------------------------------------
 
 def pose_identity(device=None, dtype=torch.float32) -> torch.Tensor:
@@ -180,6 +210,20 @@ def pose_exp(xi: torch.Tensor) -> torch.Tensor:
     R = so3_exp(w)
     t = (so3_left_jacobian(w) @ rho[..., None])[..., 0]
     return torch.cat([t, mat_to_quat(R)], dim=-1)
+
+
+def pose_log(p: torch.Tensor) -> torch.Tensor:
+    """7-vector pose -> twist [rho, theta]; the rotation goes through
+    mat_to_quat(quat_to_mat(q)), as the JAX package's se3_log does."""
+    w = quat_log(mat_to_quat(pose_rotation(p)))
+    rho = (so3_left_jacobian_inv(w) @ p[..., 0:3, None])[..., 0]
+    return torch.cat([rho, w], dim=-1)
+
+
+def pose_error(meas: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """EdgeSE3 residual log(meas^-1 a^-1 b) as a 6-twist."""
+    return pose_log(pose_compose(pose_inverse(meas), pose_between(a, b)))
 
 
 def pose_retract(p: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:

@@ -244,3 +244,144 @@ def test_count_kernel_long_rows_match_plain(rng, dev, n):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert want.sum() > 0
+
+
+# -- the back end's pair program and tick ---------------------------------
+
+def test_nn_kernel_pair_program_rows_match_plain(rng, dev):
+    """64 rows as the pair program hands them over: ragged source and
+    target masks, a quarter of the rows frozen (every source lane masked)
+    and a row with no valid target; bitwise on every lane."""
+    b, n = 64, 4096
+    src, smask = _cloud(rng, dev, b, n)
+    tgt, tmask = _cloud(rng, dev, b, n)
+    ends = torch.from_numpy(rng.integers(1, n, size=(b, 2))).to(dev)
+    lanes = torch.arange(n, device=dev)
+    smask = smask & (lanes < ends[:, :1])
+    tmask = tmask & (lanes < ends[:, 1:])
+    smask[::4] = False
+    tmask[5] = False
+    tgt = pad_invalid(tgt, tmask).contiguous()
+    d_k, i_k = nn_kernel.nn_cuda(src, tgt, smask, tmask)
+    d_p, i_p = nn_kernel.nn_plain(src, tgt, smask, tmask)
+    torch.cuda.synchronize()
+    assert torch.equal(i_k, i_p)
+    assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
+    assert torch.isinf(d_k[::4]).all() and torch.isinf(d_k[5]).all()
+
+
+def _small_world(n_frames):
+    """Clouds (256 lanes), covariances and drifting odometry of 1.2 laps
+    of a small world, as tests/test_torch_backend.py builds them."""
+    from mrg_slam_tpu_torch.config import PrefilterConfig, RegistrationConfig
+    from mrg_slam_tpu_torch.io.synthetic import (SyntheticWorld,
+                                                 circle_trajectory)
+    from mrg_slam_tpu_torch.ops import registration as reg
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud
+    from mrg_slam_tpu_torch.ops.prefilter import prefilter
+    from mrg_slam_tpu_torch.utils import se3np
+
+    w = SyntheticWorld.build(seed=5, extent=30.0, n_ground=25000,
+                             n_pillars=25, n_walls=10,
+                             max_points_per_scan=4096, noise=0.02)
+    traj = circle_trajectory(66, radius=12.0, laps=1.2)[:n_frames]
+    pre = PrefilterConfig(downsample_resolution=0.5,
+                          capacity_filtered_points=256,
+                          outlier_removal_method="NONE")
+    regc = RegistrationConfig(
+        reg_transformation_epsilon=1e-3, reg_maximum_iterations=16,
+        reg_covariance_radius=1.0, reg_stall_epsilon=0.01,
+        reg_coarse_stride=2, reg_coarse_iterations=6)
+    rng = np.random.default_rng(3)
+    start_inv = se3np.pose_inverse(traj[0])
+    drift = se3np.pose_identity()
+    clouds, covs, odom = [], [], []
+    for i, p in enumerate(traj):
+        step = np.concatenate([rng.normal(0, 0.01, 3), [1.0],
+                               rng.normal(0, 0.002, 3)]).astype(np.float32)
+        step[3:] /= np.linalg.norm(step[3:])
+        if i:
+            drift = se3np.pose_compose(drift, step)
+        odom.append(se3np.pose_compose(se3np.pose_compose(start_inv, p),
+                                       drift))
+        c = prefilter(PointCloud.from_array(w.scan(p, seed=i), 4096,
+                                            device="cpu"), pre)
+        clouds.append((c.points.numpy(), c.mask.numpy()))
+        covs.append(reg.make_source(c, regc).covs.numpy())
+    return regc, clouds, covs, odom
+
+
+def test_pair_program_on_the_card_matches_the_cpu(dev):
+    """The batched pair program on the card against the port on the CPU,
+    on the same rows: evaluate-only, registration, disjoint and budget-1
+    rows. Iterations and converged equal, poses within 1e-4."""
+    from mrg_slam_tpu_torch.ops import registration as reg
+    from mrg_slam_tpu_torch.ops.covariance import GICPCloud
+    from mrg_slam_tpu_torch.utils import se3np
+
+    regc, clouds, covs, odom = _small_world(56)
+    pairs = [(10, 12, 0), (20, 22, 16), (30, 31, 16), (5, 17, 16),
+             (44, 46, 1), (50, 52, 3), (0, 40, 16), (10, 12, 16)]
+    inits = np.stack([se3np.pose_between(odom[a], odom[b])
+                      for a, b, _ in pairs])
+    inits[6, 0] += 100.0  # disjoint
+
+    def run(device):
+        def g(i):
+            return GICPCloud(*(torch.from_numpy(np.array(x)).to(device)
+                               for x in (*clouds[i], covs[i])))
+        return reg.align_pairs_packed(
+            regc, [g(a) for a, _, _ in pairs], [g(b) for _, b, _ in pairs],
+            inits, [m for _, _, m in pairs], [2.0] * len(pairs)).cpu()
+
+    got, want = run(dev), run("cpu")
+    assert torch.equal(got[:, 7:10], want[:, 7:10])
+    torch.testing.assert_close(got[:, :7], want[:, :7], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[:, 10:], want[:, 10:], rtol=1e-4,
+                               atol=0)
+    assert (got[:, 8] > 0).sum() >= 6
+
+
+def test_tick_on_the_card_matches_the_cpu(dev):
+    """Two ticks of MrgSlam on the card against the same on the CPU, from
+    the same clouds, covariances and odometry: the same keyframes and
+    loops, chi2 within rel 1e-3, keyframe poses within 1e-3 m."""
+    import dataclasses
+
+    from mrg_slam_tpu_torch.config import (LoopClosureConfig,
+                                           OptimizerConfig, SlamConfig)
+    from mrg_slam_tpu_torch.models.backend import MrgSlam
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud
+
+    regc, clouds, covs, odom = _small_world(66)
+    cfg = SlamConfig(
+        own_name="atlas", multi_robot_names=("atlas",),
+        keyframe_delta_trans=2.0, capacity_keyframes=16, capacity_edges=32,
+        capacity_keyframe_points=256, registration=regc,
+        optimizer=OptimizerConfig(solver_backend="dense",
+                                  g2o_solver_num_iterations=64),
+        loop=dataclasses.replace(LoopClosureConfig(), capacity_candidates=4,
+                                 fitness_score_max_range=2.0),
+        robot_remove_points_radius=0.0)
+
+    def run(device):
+        slam = MrgSlam(cfg, device=device)
+        chi2 = []
+        for i in range(66):
+            slam.process_scan(i * 0.1, odom[i], PointCloud(
+                *(torch.from_numpy(x).to(device) for x in clouds[i])),
+                source_covs=torch.from_numpy(covs[i]).to(device))
+            if (i + 1) % 33 == 0:
+                st = slam.optimization_tick(now=i * 0.1)
+                chi2.append((st.chi2_before, st.chi2_after))
+        return slam, np.asarray(chi2)
+
+    (gpu, c_gpu), (cpu, c_cpu) = run(dev), run("cpu")
+    assert gpu.db.graph.cap["nodes"] > 16  # the store grew on the card
+    assert len(gpu.db.keyframes) == len(cpu.db.keyframes)
+    loops = [sorted((e.from_readable, e.to_readable) for e in s.db.edges
+                    if e.type == "loop") for s in (gpu, cpu)]
+    assert loops[0] and loops[0] == loops[1]
+    np.testing.assert_allclose(c_gpu, c_cpu, rtol=1e-3, atol=1e-6)
+    assert np.abs(gpu.trajectory()[:, :3]
+                  - cpu.trajectory()[:, :3]).max() < 1e-3

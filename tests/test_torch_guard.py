@@ -32,7 +32,17 @@ bad = sorted(n for n in sys.modules
 print("LOADED", len([n for n in sys.modules
                      if n.startswith("mrg_slam_tpu_torch")]))
 print("BAD", bad)
+print("NAMES", sorted(n for n in sys.modules
+                      if n.startswith("mrg_slam_tpu_torch")))
 """
+
+# the back end's modules, which the walk above must reach
+_BACK_END = ("config", "convert", "utils.se3np", "ops.registration",
+             "ops.fitness", "graph.types", "graph.robust", "graph.edges",
+             "graph.solve", "graph.builder", "models.keyframe",
+             "models.keyframe_updater", "models.information_matrix",
+             "models.graph_database", "models.pair_runner",
+             "models.loop_detector", "parallel.messages", "models.backend")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -43,7 +53,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     loaded = int(re.search(r"LOADED (\d+)", out.stdout).group(1))
-    assert loaded >= 15  # every module of the package was imported
+    assert loaded >= 32  # every module of the package was imported
+    names = out.stdout.split("NAMES", 1)[1]
+    for m in _BACK_END:
+        assert f"'mrg_slam_tpu_torch.{m}'" in names, m
 
 
 _IMPORT = re.compile(
@@ -52,7 +65,9 @@ _IMPORT = re.compile(
 
 def test_port_sources_name_neither_jax_nor_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 16
+    assert len(files) >= 36
+    for m in _BACK_END:
+        assert PORT / (m.replace(".", "/") + ".py") in files, m
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _IMPORT.finditer(f.read_text())]
     assert not hits, hits
