@@ -821,7 +821,8 @@ def slam_phase(torch, inp):
         f"{m['keyframes']} keyframes, {m['loops']} loops, ATE "
         f"{m['ate_m']:.4f} m (odometry alone {m['ate_odom_m']:.4f} m); "
         f"JAX reference {REF_SLAM}")
-    log(f"# store growth (tick, node capacity, edge capacity): {run.growth}")
+    log(f"# store growth: {len(run.growth)} event(s) (tick, node capacity, "
+        f"edge capacity): {run.growth}")
     for i, t in enumerate(run.ticks):
         log(f"# tick {i}: {json.dumps(t)}")
     back_nn = sum(t["nn_launches"] for t in run.ticks)
@@ -870,6 +871,7 @@ def slam_phase(torch, inp):
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing to run", file=sys.stderr)
         return 1
@@ -979,6 +981,8 @@ def main():
                     "stage_ms_per_frame": per_frame,
                     "full_slam": slam_m,
                     "build_s": native.build_seconds}))
+    log(f"# smoke run: {time.perf_counter() - t_start:.1f} s, kernel builds "
+        "included")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -190,14 +190,12 @@ class GraphSLAM:
             poses=poses, node_mask=flags[0].bool(),
             node_fixed=flags[1].bool(), se3=se3)
 
-    def optimize(self, num_iterations: Optional[int] = None,
-                 marginals_mode: Optional[str] = None) -> float:
+    def optimize(self, num_iterations: Optional[int] = None) -> float:
         """Run LM; write the estimates back into the staging buffers.
 
         Returns the final chi2 and keeps chi2 before and after on the
-        object (graph_slam.cpp:353-395). `marginals_mode` overrides
-        cfg.per_tick_marginals ("none" | "approx" | "exact" | "auto");
-        the covariance blocks land in `self.last_marginals`
+        object (graph_slam.cpp:353-395). Unless cfg.per_tick_marginals is
+        "none", the covariance blocks land in `self.last_marginals`
         (mrg_slam_component.cpp:882-891). Poses, chi2 and marginals come
         back to the host in one packed read."""
         cfg = self.cfg
@@ -209,9 +207,8 @@ class GraphSLAM:
         res = solve.optimize(g, cfg)
         t1 = time.perf_counter()
         n = self._n_nodes
-        mode = solve.resolve_marginals_mode(
-            marginals_mode if marginals_mode is not None
-            else cfg.per_tick_marginals, self.cap["nodes"])
+        mode = solve.resolve_marginals_mode(cfg.per_tick_marginals,
+                                            self.cap["nodes"])
         parts = [res.poses.reshape(-1),
                  torch.stack([res.chi2_initial, res.chi2_final])]
         if mode != "none" and n:

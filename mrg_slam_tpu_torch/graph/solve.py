@@ -166,7 +166,7 @@ def _cholesky(A: torch.Tensor):
 
 
 def dense_delta(H, b, free, lam):
-    """Damped Newton step -> (x, predicted chi2 reduction, |b|_inf).
+    """Damped Newton step -> (x, predicted chi2 reduction).
 
     f32 Cholesky of a raw pose-graph Hessian (condition 1e6 and more)
     loses enough precision to stall LM; symmetric Jacobi equilibration and
@@ -174,7 +174,6 @@ def dense_delta(H, b, free, lam):
     the JAX package, which factors the upper triangle; the lower factor
     here is the same matrix, rounded differently)."""
     diag = torch.diagonal(H)
-    gnorm = torch.max(torch.abs(b))
     Hl = H + torch.diag((lam * diag + 1e-6) * free)
     s = torch.rsqrt(torch.clamp(torch.diagonal(Hl), min=1e-12))
     Hs = Hl * s[:, None] * s[None, :]
@@ -185,7 +184,7 @@ def dense_delta(H, b, free, lam):
     x = y[:, 0] * s
     # predicted chi2 reduction of the damped step (g2o's LM rho
     # denominator): dx^T (lam D dx + b)
-    return x, torch.sum(x * (lam * diag * x + b)), gnorm
+    return x, torch.sum(x * (lam * diag * x + b))
 
 
 def _retract_all(g: PoseGraphData, dx_n: torch.Tensor) -> PoseGraphData:
@@ -228,7 +227,7 @@ def optimize(g: PoseGraphData, cfg: OptimizerConfig) -> OptimizeResult:
     it = 0
     while it < cfg.g2o_solver_num_iterations:
         H, b, free = assemble_dense(g, lin)
-        x, pred, _ = dense_delta(H, b, free, lam)
+        x, pred = dense_delta(H, b, free, lam)
         g_new = _retract_all(g, x[:6 * n].view(n, 6))
         lin_new = linearize(g_new)
         chi2_new = lin_new.chi2

@@ -53,12 +53,11 @@ class LoopManager:
 
 
 class LoopDetector:
-    def __init__(self, cfg: LoopClosureConfig, reg_cfg: RegistrationConfig,
-                 runner: Optional[PairRunner] = None):
+    def __init__(self, cfg: LoopClosureConfig, reg_cfg: RegistrationConfig):
         self.cfg = cfg
         self.reg_cfg = reg_cfg
         self.loop_manager = LoopManager()
-        self.runner = runner or PairRunner(reg_cfg)
+        self.runner = PairRunner(reg_cfg)
         # stats mirroring loop_detector.hpp:140-141
         self.loop_detection_times: List[float] = []
         self.loop_candidates_sizes: List[int] = []
