@@ -15,9 +15,8 @@ with e the residual, Jr^-1 the SE(3) right Jacobian inverse
 6x6 adjoint in rho-first order. They are formed in float64 from the
 float32 residual and poses and rounded to float32 once, so they carry
 no cancellation of the small-angle coefficients. (Forward-mode autodiff
-with `torch.func` gives the same numbers but runs some fifteen thousand
-small ops for one linearization of a 512-edge table, each a kernel
-launch on the card.)
+with `torch.func` gives the same numbers but runs many times the ops of
+this closed form, each a kernel launch on the card.)
 
 The prior, SE3-plane, plane-prior and plane-plane families are not ported
 yet (ROADMAP.md queue 1 item 12); graph/solve.py refuses a table that

@@ -16,8 +16,8 @@ Tolerances and why:
   differently. Iterations within 2, with LM stopping at a relative chi2
   gain of 1e-4: at the default 1e-6 the last iterations of both packages
   sit on chi2's float32 rounding floor (~1e-6 relative here), where
-  accepting or rejecting a step is rounding noise, and the two stop 13
-  and 17 iterations in at the same chi2.
+  accepting or rejecting a step is rounding noise, and the two stop a
+  few iterations apart at the same chi2.
 - marginals: exact=True within rel 1e-3 of the largest entry of a
   float64 inverse of the same dense Hessian (tests/test_torch_backend.py
   holds it to the JAX package's); exact=False within rel 1e-3 of float64
