@@ -139,8 +139,8 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
 
 
 def quat_log(q: torch.Tensor) -> torch.Tensor:
-    """Unit quaternion -> rotation vector (2 log q), Taylor form near 0 so
-    that forward-mode derivatives stay finite there."""
+    """Unit quaternion -> rotation vector (2 log q), with the JAX
+    package's Taylor form near 0."""
     q = torch.where(q[..., 0:1] < 0, -q, q)  # w >= 0, theta in [0, pi]
     w = torch.clamp(q[..., 0], -1.0, 1.0)
     v2 = torch.sum(q[..., 1:4] * q[..., 1:4], dim=-1)
