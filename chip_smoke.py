@@ -24,7 +24,23 @@ drives two paths at full width on bench.py's production world:
   poses differ by a bit from the warm pass's. nn is then held, bit for
   bit, to its plain version at the pair program's shape (64 rows of
   the run's keyframe pairs, ragged masks, frozen rows, stride-2 coarse
-  rows) and timed there.
+  rows) and timed there;
+- multi-robot co-hosting (bench.py:277-475) at bench's multi-robot width
+  (32768 raw -> 4096 filtered points): a fixed 240-scan survey of one lap
+  split among R = 2, 3, 4 robots, per block one prefilter over the R*B
+  scans, one `run_batch_multi` (one R-row Gauss-Newton sweep a frame),
+  `SharedGraphSlam.process_scan` per robot and frame and one
+  `optimization_tick` for the fleet; a warm run and a timed one per R.
+  It prints aggregate and per-robot scans/s, per-robot keyframes and
+  ATE, inter-robot loops and per tick the loop-closure and optimize ms,
+  pair rows and nn launches. It fails without an inter-robot loop, with
+  the worst ATE, keyframes or inter-robot loops outside their bounds
+  around the JAX package's numbers (`tools/shared_graph_reference.py`),
+  if a block's odometry launched nn other than once per sweep of its
+  slowest robot, or if the timed run's keyframe poses differ by a bit
+  from the warm run's. Every kernel is then held to its plain version
+  and timed at this path's shapes (nn at 4 x 4096 odometry rows and at
+  the run's largest pair bucket, count and moments on 48 x 4096).
 
 Any failed check raises. The last line of standard output is {"ok": true,
 "device": {...}}; the line before it lists every kernel with its
@@ -65,6 +81,25 @@ REF_ATE_M = 0.2813718731443308
 REF_SLAM = dict(ate_m=0.2663814268413071, ate_odom_m=0.49454696107988355,
                 keyframes=152, loops=32)
 PAIR_ROWS = 64  # the pair program's bucket cap at 8192 points
+# bench.py's multi-robot section (run_multirobot_scaling, bench.py:277-475)
+# at its own width: build_world_and_scans(n_frames=160, laps=1.0)
+# (bench.py:71-81; 32768 raw points a scan, 4096 filtered), a fixed
+# 240-scan survey split among R robots, B frames a block per robot
+MR_RAW, MR_FILTERED, MR_FRAMES, MR_SURVEY = 32768, 4096, 160, 240
+MR_BLOCKS = {2: 24, 3: 16, 4: 12}
+MR_NAMES = ("alpha", "bravo", "charlie", "delta")
+# the JAX package's same drive on the CPU, per fleet size: worst keyframe
+# ATE, keyframes per robot, inter-robot loops
+# (`python tools/shared_graph_reference.py`)
+REF_MR = {
+    2: dict(worst_ate_m=0.18536934397664148, keyframes=[31, 31],
+            inter_loops=26),
+    3: dict(worst_ate_m=0.4947618352346885, keyframes=[21, 21, 21],
+            inter_loops=21),
+    4: dict(worst_ate_m=0.5681725353232716, keyframes=[15, 16, 16, 16],
+            inter_loops=17)}
+# the deployment's run-to-run spread of the worst ATE (README.md:228)
+MR_ATE_SPREAD = 0.3
 # H100 SXM: 67 TFLOP/s float32 outside the tensor cores, 3.35 TB/s HBM
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -194,6 +229,477 @@ def make_slam_config(odo):
         loop=dataclasses.replace(LoopClosureConfig(), capacity_candidates=4,
                                  fitness_score_max_range=2.0),
         robot_remove_points_radius=0.0)
+
+
+def make_mr_configs():
+    """make_configs(MR_RAW, MR_FILTERED) (bench.py:94-148) with the
+    multi-robot overrides of bench.py:309-326 -> (pre, odo, slam)."""
+    pre, odo = make_configs()
+    pre = dataclasses.replace(pre, capacity_raw_points=MR_RAW,
+                              capacity_filtered_points=MR_FILTERED)
+    slam = make_slam_config(odo)
+    slam = dataclasses.replace(
+        slam, keyframe_delta_trans=2.0, capacity_keyframe_points=MR_FILTERED,
+        loop=dataclasses.replace(slam.loop,
+                                 accum_distance_thresh_other_robot=2.0,
+                                 capacity_candidates=2),
+        registration=dataclasses.replace(slam.registration,
+                                         reg_maximum_iterations=12))
+    odo = dataclasses.replace(
+        odo, keyframe_delta_translation=2.0,
+        registration=dataclasses.replace(odo.registration,
+                                         reg_transformation_epsilon=1e-3))
+    return pre, odo, slam
+
+
+class MrInputs(NamedTuple):
+    traj: np.ndarray  # (MR_FRAMES, 7) ground truth
+    raw: object       # (MR_FRAMES, MR_RAW, 3) float32 scans on the card
+    rmask: object     # (MR_FRAMES, MR_RAW) bool
+    stamps: object    # (MR_FRAMES,) float32 seconds
+    cfgs: tuple       # (pre, odo, slam)
+
+
+def mr_inputs(torch, dev):
+    """bench.py's multi-robot world and configs on the card."""
+    from mrg_slam_tpu_torch.io.synthetic import (SyntheticWorld,
+                                                 circle_trajectory)
+
+    world = SyntheticWorld.build(seed=7, extent=45.0, n_ground=120000,
+                                 n_pillars=60, n_walls=20,
+                                 max_points_per_scan=MR_RAW, noise=0.02)
+    traj = circle_trajectory(MR_FRAMES, radius=15.0, laps=1.0)
+    raw = np.full((MR_FRAMES, MR_RAW, 3), 1.0e6, np.float32)
+    rmask = np.zeros((MR_FRAMES, MR_RAW), bool)
+    for i, p in enumerate(traj):
+        s = world.scan(p, seed=i)[:MR_RAW]
+        raw[i, :len(s)] = s
+        rmask[i, :len(s)] = True
+    return MrInputs(traj, torch.from_numpy(raw).to(dev),
+                    torch.from_numpy(rmask).to(dev),
+                    torch.arange(MR_FRAMES, dtype=torch.float32,
+                                 device=dev) * 0.1, make_mr_configs())
+
+
+def windows_for(R):
+    """bench.py:341-361: the fixed MR_SURVEY-scan survey of the lap split
+    among R robots in evenly spread, overlapping windows."""
+    span = MR_SURVEY // R
+    stride = (MR_FRAMES - span) // (R - 1)
+    w = [(i * stride, i * stride + span) for i in range(R - 1)]
+    w.append((MR_FRAMES - span, MR_FRAMES))
+    return dict(zip(MR_NAMES[:R], w))
+
+
+def init_pose_of(p):
+    yaw = 2.0 * np.arctan2(p[6], p[3])
+    return (float(p[0]), float(p[1]), float(p[2]), float(yaw), 0.0, 0.0)
+
+
+class MrRun(NamedTuple):
+    group: object      # the SharedGraphSlam after the last tick
+    windows: dict      # robot -> (first frame, end frame)
+    wall: float        # seconds, group creation to the last tick's end
+    ticks: list        # one dict per tick
+    odo_blocks: list   # per block: (nn launches, sum of slowest GN iters)
+    fallbacks: int     # blocks run per robot (ragged tails)
+
+
+class BucketRecorder:
+    """Installed over `registration.align_pairs_packed`, keeps the inputs
+    of the largest pair bucket handed to it (rows of target and source
+    GICP clouds, the rows' initial poses) and passes every call on."""
+
+    def __init__(self, reg):
+        self.reg, self.fn, self.largest = reg, reg.align_pairs_packed, None
+
+    def __enter__(self):
+        self.reg.align_pairs_packed = self
+        return self
+
+    def __exit__(self, *exc):
+        self.reg.align_pairs_packed = self.fn
+
+    def __call__(self, params, tgts, srcs, init_poses, *rest):
+        if self.largest is None or len(tgts) > len(self.largest[0]):
+            self.largest = (list(tgts), list(srcs),
+                            np.array(init_poses, np.float32))
+        return self.fn(params, tgts, srcs, init_poses, *rest)
+
+
+def mr_drive(torch, inp, R):
+    """bench.py's run_multirobot_scaling `run(R)` through the port: per
+    block one prefilter over the R*B raw scans, one run_batch_multi over
+    the robots' (B, MR_FILTERED) blocks and one read of poses and GN
+    iterations, SharedGraphSlam.process_scan per robot and frame, one
+    optimization_tick; ragged window tails fall back to per-robot
+    run_batch (bench.py:413-430); a last tick."""
+    from mrg_slam_tpu_torch.models import odometry_fused as fused
+    from mrg_slam_tpu_torch.models.shared_graph import SharedGraphSlam
+    from mrg_slam_tpu_torch.ops import nn_kernel
+    from mrg_slam_tpu_torch.ops import registration as reg
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud
+    from mrg_slam_tpu_torch.ops.prefilter import prefilter
+
+    pre, odo, slam_cfg = inp.cfgs
+    covs_ok = reg.covariance_compatible(odo.registration,
+                                        slam_cfg.registration)
+    windows = windows_for(R)
+    names = list(windows)
+    B = MR_BLOCKS[R]
+    dev = inp.raw.device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    group = SharedGraphSlam(
+        dataclasses.replace(slam_cfg, own_name=names[0],
+                            multi_robot_names=tuple(names)),
+        names, {n: init_pose_of(inp.traj[lo])
+                for n, (lo, _) in windows.items()}, device=dev)
+    carries = fused.stack_carries([fused.init_carry(MR_FILTERED, device=dev)
+                                   for _ in names])
+    ticks, odo_blocks, fallbacks = [], [], 0
+
+    def ingest(name, s, fpts, fmask, poses, covs=None):
+        for i in range(poses.shape[0]):
+            group.process_scan(name, (s + i) * 0.1, poses[i],
+                               PointCloud(fpts[i], fmask[i]),
+                               source_covs=(covs[i] if covs is not None
+                                            else None))
+
+    def tick(now):
+        nn0 = nn_kernel.nn_cuda.launches
+        t1 = time.perf_counter()
+        st = group.optimization_tick(now=now)
+        if st is not None:
+            ticks.append(dict(
+                wall_ms=(time.perf_counter() - t1) * 1e3,
+                loop_closure_ms=st.loop_closure_us / 1e3,
+                optimize_ms=st.optimization_us / 1e3,
+                lm_iterations=st.iterations, loops=st.num_loops,
+                pair_rows=sum(r for r, _ in st.pair_buckets),
+                gn_iterations_per_bucket=[g for _, g in st.pair_buckets],
+                nn_launches=nn_kernel.nn_cuda.launches - nn0))
+
+    n_local = max(hi - lo for lo, hi in windows.values())
+    for s in range(0, n_local, B):
+        spans = {n: (windows[n][0] + s,
+                     min(windows[n][0] + s + B, windows[n][1]))
+                 for n in names if s < windows[n][1] - windows[n][0]}
+        if (len(spans) == len(names)
+                and all(b - a == B for a, b in spans.values())):
+            c = prefilter(PointCloud(
+                torch.cat([inp.raw[a:b] for a, b in spans.values()]),
+                torch.cat([inp.rmask[a:b] for a, b in spans.values()])), pre)
+            fpts = c.points.view(R, B, MR_FILTERED, 3)
+            fmask = c.mask.view(R, B, MR_FILTERED)
+            nn0 = nn_kernel.nn_cuda.launches
+            carries, outs = fused.run_batch_multi(
+                odo, carries, fpts, fmask, inp.stamps[s:s + B].expand(R, B))
+            nn_odo = nn_kernel.nn_cuda.launches - nn0
+            # the block's one read: poses and GN iterations together
+            host = torch.cat([outs.pose, outs.iterations[..., None].to(
+                torch.float32)], -1).cpu().numpy()
+            odo_blocks.append((nn_odo, int(host[..., 7].max(0).sum())))
+            for r, name in enumerate(names):
+                ingest(name, s, fpts[r], fmask[r], host[r, :, :7],
+                       covs=(outs.covs[r] if covs_ok else None))
+        else:
+            rows = fused.unstack_carries(carries)
+            for r, name in enumerate(names):
+                if name not in spans:
+                    continue
+                a, b = spans[name]
+                c = prefilter(PointCloud(inp.raw[a:b], inp.rmask[a:b]), pre)
+                rows[r], outs = fused.run_batch(odo, rows[r], c.points,
+                                                c.mask,
+                                                inp.stamps[s:s + (b - a)])
+                fallbacks += 1
+                ingest(name, s, c.points, c.mask, outs.pose.cpu().numpy(),
+                       covs=(outs.covs if covs_ok else None))
+            carries = fused.stack_carries(rows)
+        tick((s + B) * 0.1)
+    tick(n_local * 0.1)
+    torch.cuda.synchronize()
+    return MrRun(group, windows, time.perf_counter() - t0, ticks,
+                 odo_blocks, fallbacks)
+
+
+def mr_metrics(run, traj):
+    """bench.py:446-462: per-robot keyframe ATE (Umeyama-aligned at the
+    keyframe stamps) and that of odometry alone at the same keyframes,
+    keyframes, inter-robot loops, scans/s."""
+    from mrg_slam_tpu_torch.utils.metrics import ate_rmse
+
+    group = run.group
+    ates, odo_ates, kfs = {}, {}, {}
+    for name, (lo, _) in run.windows.items():
+        own = sorted(group.robot_keyframes(name), key=lambda k: k.stamp)
+        est = group.trajectory(name)
+        if not np.isfinite(est).all():
+            raise AssertionError(f"{name}: keyframe poses not finite")
+        gt = traj[[lo + int(round(k.stamp / 0.1)) for k in own]]
+        ates[name] = float(ate_rmse(est[:, :3], gt[:, :3]))
+        odo = np.stack([k.odom for k in own])
+        odo_ates[name] = float(ate_rmse(odo[:, :3], gt[:, :3]))
+        kfs[name] = len(own)
+    inter = 0
+    for e in group.db.edges:
+        if e.type == "loop":
+            a = group.db.uuid_keyframe_map[e.from_uuid]
+            b = group.db.uuid_keyframe_map[e.to_uuid]
+            inter += a.robot_name != b.robot_name
+    scans = sum(hi - lo for lo, hi in run.windows.values())
+    return dict(scans=scans, wall_s=run.wall, scans_per_s=scans / run.wall,
+                scans_per_s_per_robot={n: (hi - lo) / run.wall for n, (lo, hi)
+                                       in run.windows.items()},
+                ate_m=ates, worst_ate_m=max(ates.values()),
+                ate_odom_m=odo_ates, keyframes=kfs,
+                inter_loops=inter,
+                loops=sum(1 for e in group.db.edges if e.type == "loop"))
+
+
+def check_mr(R, m):
+    """The multi-robot bounds around the JAX package's numbers."""
+    ref = REF_MR[R]
+    if m["inter_loops"] < 1:
+        raise AssertionError(f"{R} robots closed no inter-robot loop")
+    if not m["worst_ate_m"] <= ref["worst_ate_m"] + MR_ATE_SPREAD:
+        raise AssertionError(
+            f"{R} robots: worst ATE {m['worst_ate_m']:.4f} m > "
+            f"{ref['worst_ate_m'] + MR_ATE_SPREAD:.4f} m")
+    for k, want in zip(m["keyframes"].values(), ref["keyframes"]):
+        if abs(k - want) > 2:
+            raise AssertionError(f"{R} robots: keyframes "
+                                 f"{m['keyframes']}, the JAX package "
+                                 f"{ref['keyframes']}")
+    if abs(m["inter_loops"] - ref["inter_loops"]) > max(
+            3, 0.3 * ref["inter_loops"]):
+        raise AssertionError(f"{R} robots: {m['inter_loops']} inter-robot "
+                             f"loops, the JAX package {ref['inter_loops']}")
+
+
+def mr_phase(torch, inp):
+    """The multi-robot section for R = 2, 3, 4: a warm run, then a timed
+    run with the counts from 0 -> (metrics per R, the R = 4 timed run's
+    launches, its odometry's nn launches and its ticks', the largest
+    pair bucket of the R = 4 warm run)."""
+    from mrg_slam_tpu_torch.ops import nn_kernel, stats_kernel
+    from mrg_slam_tpu_torch.ops import registration as reg
+
+    counters = (nn_kernel.nn_cuda, stats_kernel.count_cuda,
+                stats_kernel.moments_cuda)
+    out, bucket = {}, None
+    for R in sorted(MR_BLOCKS):
+        with BucketRecorder(reg) as rec:
+            warm = mr_drive(torch, inp, R)
+        bucket = rec.largest
+        for fn in counters:
+            fn.launches = 0
+        run = mr_drive(torch, inp, R)
+        launches = dict(zip(("nn", "count", "moments"),
+                            (fn.launches for fn in counters)))
+        m = mr_metrics(run, inp.traj)
+        log(f"# {R}-robot shared-graph SLAM at bench's width ({MR_RAW} raw "
+            f"-> {MR_FILTERED} filtered pts): {m['scans']} scans in "
+            f"{run.wall:.3f} s, {m['scans_per_s']:.2f} scans/s aggregate "
+            f"(warm run {m['scans'] / warm.wall:.2f}), per robot "
+            f"{ {n: round(v, 2) for n, v in m['scans_per_s_per_robot'].items()} }; "
+            f"keyframes {m['keyframes']}, worst ATE {m['worst_ate_m']:.4f} m "
+            f"({ {n: round(v, 4) for n, v in m['ate_m'].items()} }; "
+            f"odometry alone "
+            f"{ {n: round(v, 4) for n, v in m['ate_odom_m'].items()} }), "
+            f"{m['inter_loops']} inter-robot loops of {m['loops']}; JAX "
+            f"reference {REF_MR[R]}")
+        for i, t in enumerate(run.ticks):
+            log(f"# {R} robots, tick {i}: loop closure "
+                f"{t['loop_closure_ms']:.1f} ms, optimize "
+                f"{t['optimize_ms']:.1f} ms, pair rows {t['pair_rows']}, nn "
+                f"launches {t['nn_launches']} ({json.dumps(t)})")
+        odo_nn = sum(n for n, _ in run.odo_blocks)
+        slowest = sum(g for _, g in run.odo_blocks)
+        tick_nn = sum(t["nn_launches"] for t in run.ticks)
+        log(f"# {R} robots: launches {launches}; odometry nn {odo_nn} over "
+            f"{len(run.odo_blocks)} batched blocks (sum over frames of the "
+            f"slowest robot's GN iterations {slowest}), ticks' nn {tick_nn}, "
+            f"ragged-tail fallbacks {run.fallbacks}")
+        for k, v in launches.items():
+            if v <= 0:
+                raise AssertionError(f"{R} robots: kernel {k} never "
+                                     "launched")
+        if any(n != g for n, g in run.odo_blocks):
+            raise AssertionError(
+                f"{R} robots: odometry nn launches per block "
+                f"{[n for n, _ in run.odo_blocks]} != the slowest robot's "
+                f"GN iterations {[g for _, g in run.odo_blocks]}")
+        check_mr(R, m)
+        for name in run.windows:
+            a = warm.group.trajectory(name)
+            b = run.group.trajectory(name)
+            if a.shape != b.shape or not (a.view(np.uint32)
+                                          == b.view(np.uint32)).all():
+                raise AssertionError(f"{R} robots, {name}: keyframe poses "
+                                     "of the timed run differ from the "
+                                     "warm run's")
+        log(f"# {R} robots: timed run's keyframe poses bitwise identical to "
+            "the warm run's")
+        out[R] = dict(m, ticks=run.ticks, launches=launches,
+                      odometry_nn=odo_nn, ticks_nn=tick_nn,
+                      loop_closure_ms_per_tick=float(np.mean(
+                          [t["loop_closure_ms"] for t in run.ticks])),
+                      optimize_ms_per_tick=float(np.mean(
+                          [t["optimize_ms"] for t in run.ticks])),
+                      ref=REF_MR[R])
+    return out, launches, odo_nn, tick_nn, bucket
+
+
+def timed_row(torch, name, source, replaces, fk, fp, flib, launches, err,
+              bound_ms, bound_by):
+    """One kernel row of the kernels line, its times measured here."""
+    row = dict(name=name, route="cuda", source=source, replaces=replaces,
+               launches=launches, max_abs_err=err, ms=cuda_ms(torch, fk),
+               device_ms=graph_ms(torch, fk), plain_ms=cuda_ms(torch, fp),
+               bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=cuda_ms(torch, flib))
+    log(f"# {name}: kernel {row['ms']:.4f} ms around one call "
+        f"({row['device_ms']:.4f} ms a launch in a CUDA graph), plain "
+        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}); {launches} launches in the "
+        "R = 4 timed run")
+    return row
+
+
+def mr_kernel_rows(torch, inp, launches, odo_nn, tick_nn, bucket):
+    """Every kernel at the multi-robot path's shapes, on its inputs, held
+    to its plain version: nn at the odometry's 4 x 4096 onto 4 x 4096 (the
+    first R = 4 block's frames 1 onto 0, with their masks) and at the
+    largest pair bucket of the R = 4 run (with every 4th row frozen and on
+    the stride-2 coarse rows), bitwise; count on that block's 48 x 4096
+    voxel grid output, exact; moments on its 48 x 4096 prefiltered clouds,
+    within the float32 summation bound."""
+    from mrg_slam_tpu_torch.ops import nn_kernel as nk
+    from mrg_slam_tpu_torch.ops import stats_kernel as sk
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud, pad_invalid
+    from mrg_slam_tpu_torch.ops.prefilter import downsample_stage, prefilter
+    from mrg_slam_tpu_torch.utils import se3
+
+    pre = inp.cfgs[0]
+    R, B = 4, MR_BLOCKS[4]
+    spans = [(lo, lo + B) for lo, _ in windows_for(R).values()]
+    first = PointCloud(torch.cat([inp.raw[a:b] for a, b in spans]),
+                       torch.cat([inp.rmask[a:b] for a, b in spans]))
+    vox = downsample_stage(first, pre)
+    blk = prefilter(first, pre)
+    blk_pts = pad_invalid(blk.points, blk.mask).contiguous()
+    pts4 = blk_pts.view(R, B, MR_FILTERED, 3)
+    m4 = blk.mask.view(R, B, MR_FILTERED)
+    src, tgt = pts4[:, 1].contiguous(), pts4[:, 0].contiguous()
+    sm, tm = m4[:, 1].contiguous(), m4[:, 0].contiguous()
+    r2c, r2m = sk.radius_sq(0.5), sk.radius_sq(0.6)
+    rows = []
+
+    def real_pairs(a_mask, b_mask):
+        return float((a_mask.sum(-1).double() * b_mask.sum(-1).double())
+                     .sum())
+
+    def lib_nn_rows(s_, t_, s_m, t_m):
+        real = [(a[ma], b[mb]) for a, b, ma, mb in zip(s_, t_, s_m, t_m)]
+
+        def lib():
+            return [torch.cdist(a[None], b[None],
+                                compute_mode="donot_use_mm_for_euclid_dist"
+                                ).min(dim=-1) for a, b in real]
+        return lib
+
+    # nn at the odometry's shape
+    err = check_nn(torch, nk, src, tgt, "odometry rows", sm, tm)
+    log(f"# nn at the multi-robot odometry's shape: {R} rows x "
+        f"{MR_FILTERED} lanes, real sources {int(sm.sum(-1).min())}-"
+        f"{int(sm.sum(-1).max())}: bitwise == plain on every lane")
+    rows.append(timed_row(
+        torch, "nn_odom_mr", "mrg_slam_tpu_torch/csrc/nn.cu",
+        "mrg_slam_tpu/ops/pallas_nn.py:48",
+        lambda: nk.nn_cuda(src, tgt, sm, tm),
+        lambda: nk.nn_plain(src, tgt, sm, tm),
+        lib_nn_rows(src, tgt, sm, tm), odo_nn, err,
+        *bound(real_pairs(sm, tm), 9, 0,
+               (src.numel() + tgt.numel()) * 4 + src.shape[0]
+               * src.shape[1] * 12)))
+
+    # nn at the largest pair bucket: its rows' first sweep
+    tgts, srcs, inits = bucket
+    init = torch.from_numpy(inits).to(src.device)
+    p_src = se3.pose_apply(init[:, None, :], torch.stack(
+        [c.points for c in srcs])).contiguous()
+    p_sm = torch.stack([c.mask for c in srcs]).contiguous()
+    t_m = torch.stack([c.mask for c in tgts]).contiguous()
+    p_tgt = pad_invalid(torch.stack([c.points for c in tgts]),
+                        t_m).contiguous()
+    frozen = p_sm.clone()
+    frozen[::4] = False
+    check_nn(torch, nk, p_src, p_tgt, "pair bucket", p_sm, t_m)
+    check_nn(torch, nk, p_src, p_tgt, "pair bucket, frozen", frozen, t_m)
+    coarse = [x[:, ::2].contiguous() for x in (p_src, p_tgt, p_sm, t_m)]
+    check_nn(torch, nk, coarse[0], coarse[1], "pair bucket, coarse",
+             coarse[2], coarse[3])
+    err = check_nn(torch, nk, p_src, p_tgt, "pair bucket", p_sm, t_m)
+    log(f"# nn at the largest pair bucket of the R = 4 run: "
+        f"{p_src.shape[0]} rows x {p_src.shape[1]} lanes, real sources "
+        f"{int(p_sm.sum(-1).min())}-{int(p_sm.sum(-1).max())}: bitwise == "
+        "plain on every lane, also with every 4th row frozen and on the "
+        "stride-2 coarse rows")
+    rows.append(timed_row(
+        torch, "nn_pairs_mr", "mrg_slam_tpu_torch/csrc/nn.cu",
+        "mrg_slam_tpu/ops/pallas_nn.py:48",
+        lambda: nk.nn_cuda(p_src, p_tgt, p_sm, t_m),
+        lambda: nk.nn_plain(p_src, p_tgt, p_sm, t_m),
+        lib_nn_rows(p_src, p_tgt, p_sm, t_m), tick_nn, err,
+        *bound(real_pairs(p_sm, t_m), 9, 0,
+               (p_src.numel() + p_tgt.numel()) * 4 + p_src.shape[0]
+               * p_src.shape[1] * 12)))
+
+    # count on the block's voxel grid output
+    vp, vm = vox.points.contiguous(), vox.mask.contiguous()
+    err, c_plain = check_count(torch, sk, vp, vm, r2c, "multi-robot voxel "
+                               "block")
+    count_real = [p[m] for p, m in zip(vp, vm)]
+
+    def lib_count():
+        return [((d <= 0.5) & (d > 0)).sum(-1) for d in (
+            torch.cdist(p, p, compute_mode="donot_use_mm_for_euclid_dist")
+            for p in count_real)]
+
+    rows.append(timed_row(
+        torch, "count_mr", "mrg_slam_tpu_torch/csrc/radius_stats.cu",
+        "mrg_slam_tpu/ops/pallas_stats.py:34",
+        lambda: sk.count_cuda(vp, vm, r2c),
+        lambda: sk.count_plain(vp, vm, r2c), lib_count, launches["count"],
+        err, *bound(float(c_plain.double().sum()), 11, 0,
+                    vp.numel() * 4 + vm.numel() * 5)))
+
+    # moments on the block after prefilter (make_source's input)
+    err, inside = check_moments(torch, sk, blk_pts, r2m, "multi-robot "
+                                "block", blk.mask)
+    feats = torch.cat([torch.ones_like(blk_pts[..., :1]), blk_pts,
+                       *(blk_pts[..., a:a + 1] * blk_pts[..., b:b + 1]
+                         for a, b in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2),
+                                      (2, 2)))], dim=-1)
+    pts_real = [p[m] for p, m in zip(blk_pts, blk.mask)]
+    feats_real = [f[m] for f, m in zip(feats, blk.mask)]
+
+    def lib_moments():
+        return [(torch.cdist(p, p, compute_mode="donot_use_mm_for_euclid_dist")
+                 <= 0.6).float() @ f for p, f in zip(pts_real, feats_real)]
+
+    rows.append(timed_row(
+        torch, "moments_mr", "mrg_slam_tpu_torch/csrc/radius_stats.cu",
+        "mrg_slam_tpu/ops/pallas_stats.py:93",
+        lambda: sk.moments_cuda(blk_pts, blk_pts, r2m, blk.mask, blk.mask),
+        lambda: sk.moments_plain(blk_pts, blk_pts, r2m, blk.mask, blk.mask),
+        lib_moments, launches["moments"], err,
+        *bound(real_pairs(blk.mask, blk.mask), 9, 16 * inside,
+               blk_pts.numel() * 4 + blk_pts.shape[0] * blk_pts.shape[1]
+               * 40)))
+    return rows
 
 
 class FrontEndInputs(NamedTuple):
@@ -973,6 +1479,15 @@ def main():
     slam_m, back_nn, slam_run = slam_phase(torch, inp)
     rows.append(pair_nn_phase(torch, slam_run.slam, back_nn,
                               slam_run.ticks))
+
+    t0 = time.perf_counter()
+    mr = mr_inputs(torch, dev)
+    log(f"# multi-robot world: {MR_FRAMES} frames x "
+        f"{int(mr.rmask.sum(1).float().mean())} raw pts, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    mr_m, mr_launches, odo_nn, tick_nn, bucket = mr_phase(torch, mr)
+    rows.extend(mr_kernel_rows(torch, mr, mr_launches, odo_nn, tick_nn,
+                               bucket))
     log(json.dumps({"frames_per_s": fps,
                     "pass1_frames_per_s": FRAMES / sum(run1.block_walls),
                     "ate_m": ate, "ref_ate_m": REF_ATE_M,
@@ -980,6 +1495,7 @@ def main():
                     "host_sync_ms_per_iter": sync_ms,
                     "stage_ms_per_frame": per_frame,
                     "full_slam": slam_m,
+                    "multi_robot": {str(R): v for R, v in mr_m.items()},
                     "build_s": native.build_seconds}))
     log(f"# smoke run: {time.perf_counter() - t_start:.1f} s, kernel builds "
         "included")

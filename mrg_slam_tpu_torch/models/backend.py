@@ -4,8 +4,11 @@ pose-graph optimization (MrgSlamComponent without ROS).
 Counterpart of the single-robot main path of the JAX package's
 models/backend.py. apps/mrg_slam_component.cpp's callbacks become methods:
 
-- `process_scan`      <- cloud_callback (:358)
-- `optimization_tick` <- optimization_timer_callback (:802)
+- `process_scan`        <- cloud_callback (:358)
+- `optimization_tick`   <- optimization_timer_callback (:802)
+- `slam_pose_broadcast` <- the slam pose broadcast timer
+- `generate_map`        <- map_points_publish_timer (:764)
+- `save_map`            <- save_map_service (:1078-1098)
 
 A tick runs its device work in two programs: the pair program (every
 odometry edge's fitness, every loop candidate's registration and the
@@ -16,9 +19,9 @@ of the solve's poses, chi2 and marginals.
 
 Not ported yet, and refused by the constructor: the floor, GPS and IMU
 processors and first-cloud filling (ROADMAP.md queue 1 item 12), and
-other robots in `multi_robot_names`, whose exchange services, point
-removal and asynchronous tick wait for item 14. Map assembly
-(`generate_map`, `save_map`) is the first item after this slice.
+other robots in `multi_robot_names`, whose exchange services and
+asynchronous tick wait for item 14. Robots co-hosted on one card share
+one graph through models/shared_graph.py instead.
 """
 
 from __future__ import annotations
@@ -28,17 +31,33 @@ import time
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..config import SlamConfig
+from ..io.pcd import save_pcd
 from ..ops.cloud import PointCloud
 from ..ops.covariance import GICPCloud
+from ..ops.stats_kernel import radius_sq
 from ..parallel.messages import PoseWithName, SlamStatus
 from ..runtime import DeviceLike
 from ..utils import se3np
 from .graph_database import GraphDatabase
 from .keyframe_updater import KeyframeUpdater
 from .loop_detector import LoopDetector
+from .map_cloud import MapCloudGenerator
 from .pair_runner import PairRequest
+
+
+def _remove_points_near(points: torch.Tensor, mask: torch.Tensor,
+                        centers: torch.Tensor, center_valid: torch.Tensor,
+                        radius: float) -> torch.Tensor:
+    """The mask without the points within `radius` of any valid center
+    (other-robot point removal, mrg_slam_component.cpp:375-443), in
+    float32 as the JAX package computes it."""
+    d2 = ((points[:, None, :] - centers[None, :, :]) ** 2).sum(-1)
+    d2 = torch.where(center_valid[None, :], d2,
+                     torch.full_like(d2, float("inf")))
+    return mask & ~(d2 <= radius_sq(radius)).any(-1)
 
 
 @dataclasses.dataclass
@@ -59,8 +78,11 @@ class TickStats:
         default_factory=list)
 
 
-def _refuse_unported(cfg: SlamConfig) -> None:
-    later = "is not ported yet: it waits for ROADMAP.md queue 1 item"
+_LATER = "is not ported yet: it waits for ROADMAP.md queue 1 item"
+
+
+def _refuse_processors(cfg: SlamConfig) -> None:
+    """The sensor processors and first-cloud filling wait for item 12."""
     for on, what in ((cfg.floor_coeffs.enable_floor_coeffs,
                       "the floor processor"),
                      (cfg.gps.enable_gps, "the GPS processor"),
@@ -69,26 +91,67 @@ def _refuse_unported(cfg: SlamConfig) -> None:
                       "the IMU processor"),
                      (cfg.enable_fill_first_cloud, "filling the first cloud")):
         if on:
-            raise NotImplementedError(f"{what} {later} 12")
-    others = sorted(set(cfg.multi_robot_names) - {cfg.own_name})
-    if others:
-        raise NotImplementedError(
-            f"other robots {others} in multi_robot_names: the graph "
-            f"exchange {later} 14; give multi_robot_names=(own_name,)")
+            raise NotImplementedError(f"{what} {_LATER} 12")
+
+
+def _loops_and_solve(db: GraphDatabase, loop_detector: LoopDetector,
+                     pre, statuses) -> TickStats:
+    """A tick after its flushes (`pre` = (stats, deferred edges, their
+    fitness requests) from a `_tick_begin`): the pair program, the new
+    edges and accepted loops into the graph, and the LM solve, each
+    status flagged while its stage runs."""
+    stats, deferred, edge_reqs = pre
+    for st in statuses:
+        st.in_loop_closure = True
+    runner = loop_detector.runner
+    runner.buckets.clear()
+    t0 = time.perf_counter()
+    loops, edge_results = loop_detector.detect(db, edge_reqs)
+    stats.loop_closure_us = (time.perf_counter() - t0) * 1e6
+    stats.pair_buckets = list(runner.buckets)
+    stats.num_loops = len(loops)
+    for st in statuses:
+        st.in_loop_closure = False
+    db.finalize_edges(deferred, [r.fitness_inf for r in edge_results])
+    db.insert_loops(loops)
+
+    for st in statuses:
+        st.in_optimization = True
+    t0 = time.perf_counter()
+    db.optimize()
+    stats.optimization_us = (time.perf_counter() - t0) * 1e6
+    for st in statuses:
+        st.in_optimization = False
+    stats.chi2_before = db.graph.chi2_initial
+    stats.chi2_after = db.graph.chi2_final
+    stats.iterations = db.graph.last_iterations
+    stats.lm_ms = db.graph.last_lm_ms
+    stats.marginals_ms = db.graph.last_marginals_ms
+    return stats
 
 
 class MrgSlam:
     """One robot's SLAM back end, on the card unless `device` says
     otherwise."""
 
+    MAX_OTHER_ROBOTS = 8  # point-removal centers per scan
+
     def __init__(self, cfg: SlamConfig, device: DeviceLike = None):
-        _refuse_unported(cfg)
+        _refuse_processors(cfg)
+        others = sorted(set(cfg.multi_robot_names) - {cfg.own_name})
+        if others:
+            raise NotImplementedError(
+                f"other robots {others} in multi_robot_names: the graph "
+                f"exchange {_LATER} 14; give multi_robot_names=(own_name,), "
+                "or co-host the robots in models.shared_graph."
+                "SharedGraphSlam")
         self.cfg = cfg
         self.own_name = cfg.own_name
         self.db = GraphDatabase(cfg, device=device)
         self.loop_detector = LoopDetector(cfg.loop, cfg.registration)
         self.keyframe_updater = KeyframeUpdater(cfg.keyframe_delta_trans,
                                                 cfg.keyframe_delta_angle)
+        self.map_generator = MapCloudGenerator.of_config(cfg)
         self.status = SlamStatus(robot_name=cfg.own_name)
         x, y, z, yaw, pitch, roll = cfg.init_pose
         q = se3np.rpy_to_quat(roll, pitch, yaw)
@@ -139,23 +202,8 @@ class MrgSlam:
         pre = self._tick_begin(now)
         if pre is None:
             return None
-        stats, deferred, edge_reqs = pre
-
-        self.status.in_loop_closure = True
-        runner = self.loop_detector.runner
-        runner.buckets.clear()
-        t0 = time.perf_counter()
-        loops, edge_results = self.loop_detector.detect(self.db, edge_reqs)
-        stats.loop_closure_us = (time.perf_counter() - t0) * 1e6
-        stats.pair_buckets = list(runner.buckets)
-        self.status.in_loop_closure = False
-        self._tick_insert(stats, deferred, edge_results, loops)
-
-        self.status.in_optimization = True
-        t0 = time.perf_counter()
-        self.db.optimize()
-        stats.optimization_us = (time.perf_counter() - t0) * 1e6
-        self.status.in_optimization = False
+        stats = _loops_and_solve(self.db, self.loop_detector, pre,
+                                 [self.status])
         self._tick_post(stats)
         return stats
 
@@ -190,22 +238,9 @@ class MrgSlam:
             init_pose=e.relative_pose) for e in deferred)
         return stats, deferred, edge_reqs
 
-    def _tick_insert(self, stats: TickStats, deferred, edge_results,
-                     loops) -> None:
-        """Weight and insert the tick's new edges and accepted loops."""
-        stats.num_loops = len(loops)
-        self.db.finalize_edges(deferred,
-                               [r.fitness_inf for r in edge_results])
-        self.db.insert_loops(loops)
-
     def _tick_post(self, stats: TickStats) -> None:
         """After the solve: odom2map re-estimation and the trajectory
         snapshot."""
-        stats.chi2_before = self.db.graph.chi2_initial
-        stats.chi2_after = self.db.graph.chi2_final
-        stats.iterations = self.db.graph.last_iterations
-        stats.lm_ms = self.db.graph.last_lm_ms
-        stats.marginals_ms = self.db.graph.last_marginals_ms
         # re-estimate odom2map from our latest keyframe (:864-880)
         prev = self.db.prev_robot_keyframe
         if prev is not None and prev.node_id is not None:
@@ -230,3 +265,36 @@ class MrgSlam:
     def map_pose(self, odom_pose: np.ndarray) -> np.ndarray:
         """Current map-frame pose of the robot given its odometry pose."""
         return se3np.pose_compose(self.trans_odom2map, odom_pose)
+
+    def slam_pose_broadcast(self, stamp: float) -> Optional[PoseWithName]:
+        """The latest keyframe's optimized pose, or None before the first
+        flush."""
+        prev = self.db.prev_robot_keyframe
+        if prev is None or prev.node_id is None:
+            return None
+        return PoseWithName(robot_name=self.own_name, stamp=stamp,
+                            pose=prev.estimate(self.db.graph),
+                            accum_dist=prev.accum_distance)
+
+    def generate_map(self, skip_first_cloud: bool = True) -> np.ndarray:
+        """The map over every keyframe at its optimized pose, (M, 3)."""
+        return self.map_generator.from_store(self.db, skip_first_cloud)
+
+    def save_map(self, file_path: str, resolution: Optional[float] = None,
+                 min_points_per_voxel: Optional[int] = None,
+                 distance_far_thresh: Optional[float] = None,
+                 skip_first_cloud: bool = True) -> int:
+        """SaveMap (:1078-1098): assemble the map with per-call overrides
+        of the generator's parameters and write it as a binary PCD.
+        Returns the number of points written; with no keyframe yet it
+        writes no file."""
+        if not (self.db.keyframes or self.db.new_keyframes):
+            return 0
+        cfg = self.cfg
+        gen = MapCloudGenerator(
+            resolution or cfg.map_cloud_resolution,
+            min_points_per_voxel or cfg.map_cloud_min_points_per_voxel,
+            distance_far_thresh or cfg.map_cloud_distance_far_thresh)
+        pts = gen.from_store(self.db, skip_first_cloud)
+        save_pcd(file_path, pts)
+        return len(pts)

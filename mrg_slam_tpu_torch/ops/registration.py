@@ -17,7 +17,9 @@ not ported yet (ROADMAP.md queue 1 item 11).
 The back end's pair program (`align_pairs_packed`) runs B (target, source)
 pairs as rows of one batched Gauss-Newton, each row with its own budget
 and exits, where the JAX package maps `_align_impl` over the rows with
-`vmap`. The single-row path above stays as the front end runs it.
+`vmap`. `align_rows` runs the odometry solves of R co-hosted robots the
+same way, one row each. The single-row path above stays as the
+single-robot front end runs it.
 """
 
 from __future__ import annotations
@@ -357,6 +359,46 @@ def _run_rows(params: RegistrationConfig, src: GICPCloud, tgt: GICPCloud,
 
 def _strided(c: GICPCloud, stride: int) -> GICPCloud:
     return GICPCloud(*(x[:, ::stride].contiguous() for x in c))
+
+
+def align_rows(params: RegistrationConfig, source: GICPCloud,
+               target: GICPCloud, init_pose: torch.Tensor,
+               max_iters: int) -> RegistrationResult:
+    """`_align_impl` over R rows at once: row r registers source[r] onto
+    target[r] from init_pose[r] (R, 7) within `max_iters` iterations, with
+    the same coarse stage (budget min(reg_coarse_iterations,
+    max(max_iters - 1, 0)) on stride-subsampled rows) and fine stage. Both
+    stages run through `_run_rows`, so a row keeps `_run_stage`'s exits
+    and freezes once it has finished, and each sweep launches nn once for
+    every row still active. The fields of the result stack along R.
+
+    Row r equals `_align_impl` on row r alone up to float32 rounding: the
+    batched products sum in another order (tests/test_torch_multirobot.py).
+    """
+    if not is_gicp_like(params.registration_method):
+        raise NotImplementedError(
+            f"registration method {params.registration_method} "
+            f"{_VOXEL_LATER}")
+    dev = init_pose.device
+    pose = init_pose.to(torch.float32)
+    rows = pose.shape[0]
+    stride = int(params.reg_coarse_stride)
+    budget_c = (min(params.reg_coarse_iterations, max(max_iters - 1, 0))
+                if stride > 1 else 0)
+    budget_f = max(max_iters - budget_c, 0)
+    iters = torch.zeros(rows, dtype=torch.int32, device=dev)
+    if budget_c > 0:
+        pose, iters, *_ = _run_rows(
+            params, _strided(source, stride), _strided(target, stride), pose,
+            torch.full((rows,), budget_c, dtype=torch.int32, device=dev),
+            True)
+    pose, it_f, done, err, n_in, H = _run_rows(
+        params, source, target, pose,
+        torch.full((rows,), budget_f, dtype=torch.int32, device=dev),
+        budget_f > 0)
+    return RegistrationResult(pose=pose, converged=done & (n_in > 0),
+                              iterations=iters + it_f, error=err,
+                              num_inliers=n_in, hessian=H)
 
 
 def _fitness_rows(moved: torch.Tensor, src_mask: torch.Tensor,

@@ -385,3 +385,104 @@ def test_tick_on_the_card_matches_the_cpu(dev):
     np.testing.assert_allclose(c_gpu, c_cpu, rtol=1e-3, atol=1e-6)
     assert np.abs(gpu.trajectory()[:, :3]
                   - cpu.trajectory()[:, :3]).max() < 1e-3
+
+
+def test_run_batch_multi_on_the_card_matches_the_cpu(dev):
+    """Two robots' six-frame blocks through run_batch_multi on the card
+    and on the CPU (tests/test_torch_multirobot.py holds the CPU to the
+    JAX package): the same keyframe flags, Gauss-Newton iterations within
+    one and poses within 2e-3. The card's batched products sum in another
+    order than the CPU's, and a solve whose last step sits at the 1e-3
+    epsilon exit takes one step more or fewer on one of them (seen on an
+    H100: 7 against 8 iterations in one frame), which moves its pose by
+    about one epsilon-sized step."""
+    import dataclasses
+
+    from mrg_slam_tpu_torch.config import ScanMatchingOdometryConfig
+    from mrg_slam_tpu_torch.models import odometry_fused as fused
+
+    regc, clouds, _, _ = _small_world(36)
+    cfg = ScanMatchingOdometryConfig(
+        keyframe_delta_translation=2.0,
+        registration=dataclasses.replace(regc, reg_stall_epsilon=0.0,
+                                         reg_coarse_stride=1))
+    frames = [list(range(0, 6)), list(range(30, 36))]
+    pts = np.stack([np.stack([clouds[f][0] for f in fr]) for fr in frames])
+    masks = np.stack([np.stack([clouds[f][1] for f in fr]) for fr in frames])
+
+    def run(device):
+        carries = fused.stack_carries([fused.init_carry(256, device=device)
+                                       for _ in frames])
+        _, out = fused.run_batch_multi(
+            cfg, carries, torch.from_numpy(pts).to(device),
+            torch.from_numpy(masks).to(device),
+            torch.arange(6, dtype=torch.float32, device=device).expand(2, 6))
+        return out
+
+    got, want = run(dev), run("cpu")
+    assert torch.equal(got.is_new_keyframe.cpu(), want.is_new_keyframe)
+    assert (got.iterations.cpu() - want.iterations).abs().max() <= 1
+    torch.testing.assert_close(got.pose.cpu(), want.pose, rtol=0, atol=2e-3)
+
+
+def test_shared_graph_ticks_on_the_card_match_the_cpu(dev):
+    """Two robots in one SharedGraphSlam, two ticks, on the card and on
+    the CPU from the same clouds, covariances and odometry: the same
+    keyframes and loops (inter-robot ones among them), chi2 within rel
+    1e-3, keyframe poses within 1e-3 m."""
+    import dataclasses
+
+    from mrg_slam_tpu_torch.config import (LoopClosureConfig,
+                                           OptimizerConfig, SlamConfig)
+    from mrg_slam_tpu_torch.models.shared_graph import SharedGraphSlam
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud
+    from mrg_slam_tpu_torch.utils import se3np
+
+    regc, clouds, covs, odom = _small_world(66)
+    names, windows = ("alpha", "bravo"), ((0, 36), (30, 66))
+    cfg = SlamConfig(
+        own_name="alpha", multi_robot_names=names,
+        keyframe_delta_trans=2.0, capacity_keyframes=64, capacity_edges=128,
+        capacity_keyframe_points=256, registration=regc,
+        optimizer=OptimizerConfig(solver_backend="dense",
+                                  g2o_solver_num_iterations=64),
+        loop=dataclasses.replace(LoopClosureConfig(), capacity_candidates=2,
+                                 fitness_score_max_range=2.0,
+                                 accum_distance_thresh_other_robot=2.0),
+        robot_remove_points_radius=0.0)
+
+    def run(device):
+        # each robot starts at its first odometry pose (bench.py's
+        # placement), so both chains share one map frame
+        starts = {n: odom[lo] for n, (lo, _) in zip(names, windows)}
+        group = SharedGraphSlam(cfg, names, {
+            n: (*p[:3], 2.0 * np.arctan2(p[6], p[3]), 0.0, 0.0)
+            for n, p in starts.items()}, device=device)
+        chi2 = []
+        for i in range(36):
+            for name, (lo, _) in zip(names, windows):
+                rel = se3np.pose_between(odom[lo], odom[lo + i])
+                group.process_scan(name, i * 0.1, rel, PointCloud(
+                    *(torch.from_numpy(x).to(device)
+                      for x in clouds[lo + i])),
+                    source_covs=torch.from_numpy(covs[lo + i]).to(device))
+            if (i + 1) % 18 == 0:
+                st = group.optimization_tick(now=i * 0.1)
+                chi2.append((st.chi2_before, st.chi2_after))
+        return group, np.asarray(chi2)
+
+    (gpu, c_gpu), (cpu, c_cpu) = run(dev), run("cpu")
+
+    def loops(g):
+        kfs = g.db.uuid_keyframe_map
+        return sorted((kfs[e.from_uuid].readable_id,
+                       kfs[e.to_uuid].readable_id)
+                      for e in g.db.edges if e.type == "loop")
+
+    assert len(gpu.db.keyframes) == len(cpu.db.keyframes)
+    assert loops(gpu) == loops(cpu)
+    assert any(a.split(".")[0] != b.split(".")[0] for a, b in loops(cpu))
+    np.testing.assert_allclose(c_gpu, c_cpu, rtol=1e-3, atol=1e-6)
+    for name in names:
+        assert np.abs(gpu.trajectory(name)[:, :3]
+                      - cpu.trajectory(name)[:, :3]).max() < 1e-3
