@@ -1,5 +1,8 @@
-"""The port's odometry of R co-hosted robots (`run_batch_multi`) against
-the JAX package's, and against the port's own single-robot `run_batch`.
+"""The parts of the port's co-hosting of R robots on one card against the
+JAX package's: the odometry of R robots (`run_batch_multi`, also against
+the port's own single-robot `run_batch`), the multi-chain
+`GraphDatabase`, other-robot point removal and map assembly with its PCD
+files. `SharedGraphSlam` as a whole is in tests/test_torch_shared.py.
 
 Inputs: two robots on a small world, 256-lane clouds prefiltered by the
 JAX package (both packages get the same points and masks). Robot 0 moves
@@ -29,6 +32,19 @@ Tolerances and why:
   ingest loop with `SharedGraphSlam`: each robot's odometry within 1e-4
   of one `run_batch` over its whole window (block boundaries only change
   how the covariance pass batches and the rows' summation order).
+- The multi-chain store: counters, chains, anchors and node estimates as
+  the JAX package's tests/test_shared_graph.py checks them, estimates
+  within 1e-5 of the JAX package's (float32 pose compositions).
+- Point removal: the same mask as the JAX package's, also on points
+  placed 1e-5 to 3e-5 of the radius inside or outside it (the port
+  squares the radius in float32, as the JAX package's jitted function
+  does). Closer to the radius the verdict is the rounding's: XLA on the
+  CPU fuses d2's squares into FMAs, and a few points within 3 float32
+  steps of the radius came out the other way.
+- Map assembly: the same voxel count and points within 1e-5 m, matched
+  one to one as nearest neighbours (the port sums a voxel's points in
+  float64, the JAX package in float32: a few ulp of ~30 m coordinates);
+  a binary PCD either package writes, the other reads back bit for bit.
 """
 
 import dataclasses
