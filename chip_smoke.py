@@ -40,7 +40,22 @@ drives two paths at full width on bench.py's production world:
   slowest robot, or if the timed run's keyframe poses differ by a bit
   from the warm run's. Every kernel is then held to its plain version
   and timed at this path's shapes (nn at 4 x 4096 odometry rows and at
-  the run's largest pair bucket, count and moments on 48 x 4096).
+  the run's largest pair bucket, count and moments on 48 x 4096);
+- the large-graph solvers (bench.py:478-564, `run_solvers`) at bench's
+  width: acceptance row 5's single-device half (cg LM, 40 iterations, on
+  `build_ring_graph(256)`, chi2 held to 1.96797), bench's ring with n/128
+  Huber chords solved with 64 LM iterations by the dense and chain
+  backends at 1024 nodes and by the chain backend at 8192 (chi2 held to
+  the JAX package's on the CPU, `tools/solver_reference.py`, and dense
+  against chain), a profiled 1024-node chain solve, chain marginals at
+  1024 held to the dense inverse and at 8192 to the exact reference
+  blocks, each timed as bench.py does (median of 3 reps on perturbed
+  poses after a warm call); then the full-SLAM run's final graph in a
+  store of the default capacities with the default OptimizerConfig
+  (dense LM at D = 12288, cg marginals: ROADMAP fault 3.1), held to the
+  same graph at its run's capacity and to a float64 inverse.
+  This phase launches no hand-written kernel (the solvers are plain
+  torch ops, as the JAX package's are XLA code).
 
 Any failed check raises. The last line of standard output is {"ok": true,
 "device": {...}}; the line before it lists every kernel with its
@@ -100,6 +115,137 @@ REF_MR = {
             inter_loops=17)}
 # the deployment's run-to-run spread of the worst ATE (README.md:228)
 MR_ATE_SPREAD = 0.3
+# bench.py's solver section (run_solvers, bench.py:478-564) at its own
+# width: build_ring_graph(n, seed 0) with n/128 Huber chords, 64 LM
+# iterations, dense and chain at 1024 nodes, chain at 8192, the exact chain
+# marginals of the unsolved 8192-node graph; and acceptance row 5's
+# single-device half, cg with 40 iterations on build_ring_graph(256)
+SOLVER_ITERS, SOLVER_REPS, MARGINAL_STRIDE = 64, 3, 512
+# the JAX package's chi2 after each solve, on the CPU
+# (`python tools/solver_reference.py`); row 5's is also BASELINE_SYNTH.json's
+REF_SOLVERS = dict(dense_1024=367.29644775390625,
+                   chain_1024=367.2234802246094,
+                   chain_8192=206.4286651611328, cg_256=1.9679656028747559)
+# BASELINE_SYNTH.json results, 5_distributed_mesh_solve, chi2_single
+ROW5_CHI2 = 1.9679656028747559
+SOLVER_CHI2_RTOL = 1e-3  # the ROADMAP's solver gate
+# the exact 6x6 blocks of the chain marginals (H + 1e-6 I on the free
+# dofs, inverted in float64) of nodes 512, 1024, ..., 7680 of the unsolved
+# 8192-node graph, from the JAX package's linearization
+# (`tools/solver_reference.py`; its own float32 chain marginals are NaN
+# there, ROADMAP.md §3 B5)
+REF_MARGINALS_8192 = np.array([
+    3.857378, -1.556678, 2.108308, -0.003666816, 0.2015355, 0.1454665,
+    -1.556678, 4.895099, -1.524194, -0.065248, -0.180414, -0.2738139,
+    2.108308, -1.524194, 7.363212, 0.0211258, 0.6043594, 0.1089257,
+    -0.003666816, -0.065248, 0.0211258, 0.1247725, 0.06927111, 0.01846031,
+    0.2015355, -0.180414, 0.6043594, 0.06927111, 0.1155869, 0.0227202,
+    0.1454665, -0.2738139, 0.1089257, 0.01846031, 0.0227202, 0.03978447,
+    18.76079, 3.089887, -1.285607, -0.04686898, -0.1280907, -0.9228611,
+    3.089887, 5.48287, -0.08589838, 0.08195095, -0.1425381, -0.1958763,
+    -1.285607, -0.08589838, 36.43116, 1.979642, -0.2613704, 0.1664123,
+    -0.04686898, 0.08195095, 1.979642, 0.172422, -0.1151424, 0.03132379,
+    -0.1280907, -0.1425381, -0.2613704, -0.1151424, 0.244554, -0.04032877,
+    -0.9228611, -0.1958763, 0.1664123, 0.03132379, -0.04032877, 0.07257003,
+    18.08217, -9.19846, -14.27466, -0.3315293, 0.5333393, -0.7443083,
+    -9.19846, 26.5773, -5.575876, 0.06200333, 0.4946819, 1.239194,
+    -14.27466, -5.575876, 42.15918, 0.7508142, -1.597898, 0.0617117,
+    -0.3315293, 0.06200333, 0.7508142, 0.1735751, 0.1111617, 0.07281311,
+    0.5333393, 0.4946819, -1.597898, 0.1111617, 0.2173884, 0.06799803,
+    -0.7443083, 1.239194, 0.0617117, 0.07281311, 0.06799803, 0.1027505,
+    15.41981, 3.600199, -13.91236, -0.357941, 0.8456803, -0.1672538,
+    3.600199, 22.66614, -6.323613, -0.4472899, 0.3364584, 0.8569737,
+    -13.91236, -6.323613, 27.34825, 0.6773575, -1.245213, 0.2587782,
+    -0.357941, -0.4472899, 0.6773575, 0.1444101, 0.009288056, 0.1128907,
+    0.8456803, 0.3364584, -1.245213, 0.009288056, 0.0998949, 0.04056112,
+    -0.1672538, 0.8569737, 0.2587782, 0.1128907, 0.04056112, 0.1963649,
+    16.96644, -2.68621, -8.079307, -0.3641686, 0.1133116, -0.7853157,
+    -2.68621, 6.271786, 1.851825, 0.1115724, -0.01260437, 0.1866577,
+    -8.079307, 1.851825, 31.91749, 1.282698, -0.7091651, 0.4825025,
+    -0.3641686, 0.1115724, 1.282698, 0.06924395, -0.03426785, 0.02175155,
+    0.1133116, -0.01260437, -0.7091651, -0.03426785, 0.2942844,
+    0.0001953946, -0.7853157, 0.1866577, 0.4825025, 0.02175155,
+    0.0001953946, 0.05372885, 16.46032, -5.2991, -5.737166, -0.07489389,
+    0.4524201, -0.7155566, -5.2991, 6.926848, 5.377327, 0.1355291,
+    -0.3130423, 0.3257441, -5.737166, 5.377327, 29.2753, 0.7027957,
+    -1.219133, 0.444886, -0.07489389, 0.1355291, 0.7027957, 0.0487998,
+    0.05063583, -0.001457517, 0.4524201, -0.3130423, -1.219133, 0.05063583,
+    0.3319976, -0.06203297, -0.7155566, 0.3257441, 0.444886, -0.001457517,
+    -0.06203297, 0.04594295, 5.639416, -1.832486, 1.450014, -0.06899701,
+    -0.2613167, -0.2119446, -1.832486, 3.497847, -0.1001845, 0.05361741,
+    0.07901514, 0.129723, 1.450014, -0.1001845, 9.889258, -0.006015847,
+    -0.8734226, 0.01969646, -0.06899701, 0.05361741, -0.006015847,
+    0.06546055, 0.1090077, -0.005553664, -0.2613167, 0.07901514,
+    -0.8734226, 0.1090077, 0.2841975, -0.01244127, -0.2119446, 0.129723,
+    0.01969646, -0.005553664, -0.01244127, 0.01765237, 0.0388819,
+    -0.0003611624, -0.0001318236, -2.854988e-06, -3.302572e-05,
+    -0.0001031821, -0.0003611624, 0.03919887, 0.0004608616, 4.963162e-05,
+    6.30941e-05, 0.0001960955, -0.0001318236, 0.0004608616, 0.03940684,
+    0.0001296994, -0.0001700793, -5.645423e-05, -2.854988e-06,
+    4.963162e-05, 0.0001296994, 0.009148571, 7.913369e-05, 1.766058e-05,
+    -3.302572e-05, 6.30941e-05, -0.0001700793, 7.913369e-05, 0.009065246,
+    -8.646119e-05, -0.0001031821, 0.0001960955, -5.645423e-05,
+    1.766058e-05, -8.646119e-05, 0.009022972, 4.102635, -0.219056,
+    0.1249628, 0.02045709, -0.1195447, -0.1693159, -0.219056, 4.760223,
+    0.8140824, 0.3059533, 0.01058804, -0.206227, 0.1249628, 0.8140824,
+    3.168629, 0.1780818, 0.06438315, -0.106007, 0.02045709, 0.3059533,
+    0.1780818, 0.06613434, 0.02839866, -0.04575673, -0.1195447, 0.01058804,
+    0.06438315, 0.02839866, 0.1034853, -0.05757168, -0.1693159, -0.206227,
+    -0.106007, -0.04575673, -0.05757168, 0.126877, 6.351689, -2.177377,
+    0.6158214, 0.0689662, 0.05607515, 0.3307248, -2.177377, 8.745292,
+    -0.9608991, -0.01873896, -0.2261884, -0.7487289, 0.6158214, -0.9608991,
+    9.208145, -0.03504924, 0.6497694, 0.1338963, 0.0689662, -0.01873896,
+    -0.03504924, 0.1101463, 0.05196034, 0.07147769, 0.05607515, -0.2261884,
+    0.6497694, 0.05196034, 0.1403469, 0.09029636, 0.3307248, -0.7487289,
+    0.1338963, 0.07147769, 0.09029636, 0.2555382, 8.38553, 0.9238733,
+    2.622353, 0.3022973, 0.2807697, -0.1523911, 0.9238733, 14.20164,
+    1.444403, -0.3404138, -0.004966736, -0.6103433, 2.622353, 1.444403,
+    9.729606, 0.1162766, 0.41386, -0.07266582, 0.3022973, -0.3404138,
+    0.1162766, 0.3330481, -0.04811941, -0.04158972, 0.2807697,
+    -0.004966736, 0.41386, -0.04811941, 0.07825799, -0.002615546,
+    -0.1523911, -0.6103433, -0.07266582, -0.04158972, -0.002615546,
+    0.09978092, 11.63415, -0.359986, -5.951668, 0.2435588, -0.6388377,
+    0.1658032, -0.359986, 13.87807, -2.513272, 0.2047493, -0.1141242,
+    -0.5348166, -5.951668, -2.513272, 14.37619, -0.06408851, 0.8071009,
+    0.1073533, 0.2435588, 0.2047493, -0.06408851, 0.2614096, -0.009435127,
+    0.08020651, -0.6388377, -0.1141242, 0.8071009, -0.009435127, 0.1028326,
+    0.0137381, 0.1658032, -0.5348166, 0.1073533, 0.08020651, 0.0137381,
+    0.0943515, 13.96662, -0.6837479, -0.04597171, -0.08618447, -0.5956457,
+    -0.5275293, -0.6837479, 10.60036, 1.664986, 0.3851098, 0.1380227,
+    0.06377813, -0.04597171, 1.664986, 6.050803, 0.1578854, -1.317787e-05,
+    0.05382267, -0.08618447, 0.3851098, 0.1578854, 0.06628382, -0.02480042,
+    0.06382268, -0.5956457, 0.1380227, -1.317787e-05, -0.02480042,
+    0.1036583, -0.05083631, -0.5275293, 0.06377813, 0.05382267, 0.06382268,
+    -0.05083631, 0.2652427, 8.974321, 0.943748, -0.08047914, 0.1516311,
+    -0.5083841, 0.05455603, 0.943748, 7.106064, -2.271839, 0.3182947,
+    -0.1646944, -0.05472732, -0.08047914, -2.271839, 6.054483, -0.2527973,
+    0.08245764, 0.0702382, 0.1516311, 0.3182947, -0.2527973, 0.05867593,
+    -0.03848727, -0.02222025, -0.5083841, -0.1646944, 0.08245764,
+    -0.03848727, 0.2254219, 0.1504604, 0.05455603, -0.05472732, 0.0702382,
+    -0.02222025, 0.1504604, 0.16056, 4.563704, -0.3036715, 0.5709175,
+    0.006725676, -0.1613107, -0.09698201, -0.3036715, 4.736778, 1.042033,
+    0.2921322, 0.1096909, -0.1516922, 0.5709175, 1.042033, 3.064473,
+    0.1315589, -0.01023939, -0.08664775, 0.006725676, 0.2921322, 0.1315589,
+    0.07489306, 0.04784017, -0.09920562, -0.1613107, 0.1096909,
+    -0.01023939, 0.04784017, 0.07244021, -0.09709554, -0.09698201,
+    -0.1516922, -0.08664775, -0.09920562, -0.09709554, 0.2377073]
+    ).reshape(15, 6, 6)
+# held within this share of the largest entry (the port's float64 chain
+# marginals of its own graph are 1.7e-5 from these on the CPU: the two
+# packages' ring graphs differ by float32 rounding, ~1e-5 m a pose)
+MARGINAL_TOL = 1e-3
+# the JAX package's bar for chain against dense marginals
+# (tests/test_chain_solver.py::test_chain_marginals_match_dense) and for
+# cg against exact dense marginals (tests/test_graph.py::
+# test_marginals_selected_matches_dense). The exact marginals they are
+# held to are the float64 inverse of the system the cg and chain marginals
+# solve, H + CG_RIDGE I on the free dofs: on full SLAM's graph (smallest
+# eigenvalue ~6e-5) it differs by up to 1.6 % from the dense path's
+# H + 1e-9 I, and the float32 dense inverse misses the bar on a few
+# entries itself (ROADMAP.md §3 B6)
+CHAIN_DENSE_RTOL, CHAIN_DENSE_ATOL = 0.05, 0.02
+CG_MARG_RTOL, CG_MARG_ATOL = 0.05, 1e-4
+CG_RIDGE = 1e-6
 # H100 SXM: 67 TFLOP/s float32 outside the tensor cores, 3.35 TB/s HBM
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -1374,6 +1520,279 @@ def slam_phase(torch, inp):
     return metrics, back_nn, run
 
 
+def solver_graph(n, backend, dev):
+    """bench.py:486-495 through the port: the ring and its n/128 Huber
+    chords across it."""
+    from mrg_slam_tpu_torch.pipeline.baseline_runs import build_ring_graph
+    from mrg_slam_tpu_torch.utils import se3np
+
+    gs = build_ring_graph(n_nodes=n, capacity_nodes=n, capacity_edges=2 * n,
+                          backend=backend, seed=0, device=dev)
+    info = np.diag([100.0] * 3 + [400.0] * 3).astype(np.float32)
+    for i in range(0, n - n // 2, 64):
+        j = i + n // 2
+        gs.add_se3_edge(i, j, se3np.pose_between(gs.poses[i], gs.poses[j]),
+                        info * 0.25, kernel="Huber", kernel_delta=1.0)
+    return gs
+
+
+def perturbed(torch, g, k):
+    """bench.py's reps: the poses' translations moved by 1e-4 (k + 1)."""
+    poses = g.poses.clone()
+    poses[:, :3] += 1e-4 * (k + 1)
+    return g._replace(poses=poses)
+
+
+def timed(torch, fn, g):
+    """bench.py's timing: one warm call, then the median wall of
+    SOLVER_REPS calls on perturbed poses (each ends in a synchronize) ->
+    (ms, rep ms, the last rep's result)."""
+    fn(g)
+    torch.cuda.synchronize()
+    ts = []
+    for k in range(SOLVER_REPS):
+        gk = perturbed(torch, g, k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(gk)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts)), ts, out
+
+
+def timed_solve(torch, g, backend, iters, name):
+    from mrg_slam_tpu_torch.config import OptimizerConfig
+    from mrg_slam_tpu_torch.graph import solve
+
+    cfg = OptimizerConfig(solver_backend=backend,
+                          g2o_solver_num_iterations=iters)
+    aux = solve.chain_aux_for(g) if backend == "chain" else None
+    ms, reps, res = timed(torch, lambda gk: solve.optimize(gk, cfg, aux=aux),
+                          g)
+    out = dict(ms=ms, reps_ms=reps, chi2_initial=float(res.chi2_initial),
+               chi2_final=float(res.chi2_final), iterations=res.iterations,
+               cg_iterations=int(res.cg_iterations))
+    log(f"# solver {name}: {ms:.1f} ms (reps {[round(t, 1) for t in reps]}); "
+        f"chi2 {out['chi2_initial']:.1f} -> {out['chi2_final']:.6f}, "
+        f"{res.iterations} LM iterations"
+        + (f", {out['cg_iterations']} CG iterations" if backend == "cg"
+           else ""))
+    if not np.isfinite(res.poses.cpu().numpy()).all():
+        raise AssertionError(f"solver {name}: poses not finite")
+    return out, res
+
+
+def check_chi2(name, got, want, what):
+    rel = abs(got - want) / max(abs(want), 1e-12)
+    if not rel <= SOLVER_CHI2_RTOL:
+        raise AssertionError(f"solver {name}: chi2 {got:.6f} is {rel:.2e} "
+                             f"from {what} {want:.6f}")
+    return rel
+
+
+def profiled_solve(torch, fn, wall_ms):
+    """One call under torch.profiler -> device ms, activities, share of the
+    unprofiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    log(prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=10))
+    return dict(device_ms=dev_ms, device_activities=len(device),
+                device_share=dev_ms / wall_ms)
+
+
+def copy_graph(gs, cfg, cap_nodes, cap_edges, dev):
+    """A GraphSLAM of the given capacities holding `gs`'s nodes and
+    edges."""
+    from mrg_slam_tpu_torch.graph.builder import KERNEL_IDS, GraphSLAM
+
+    out = GraphSLAM(cfg, capacity_nodes=cap_nodes, capacity_edges=cap_edges,
+                    device=dev)
+    for p, fixed in zip(gs.poses, gs.fixed):
+        out.add_se3_node(p, fixed=bool(fixed))
+    names = {v: k for k, v in KERNEL_IDS.items()}
+    a = gs._se3.arrays
+    for e in range(gs.num_edges):
+        out.add_se3_edge(int(a["from_idx"][e]), int(a["to_idx"][e]),
+                         a["meas"][e], a["info"][e],
+                         kernel=names[int(a["kernel"][e])],
+                         kernel_delta=float(a["delta"][e]))
+    return out
+
+
+def exact_marginals64(torch, g, ridge):
+    """The diagonal 6x6 blocks of (H + ridge I)^-1 over the free dofs, with
+    H assembled and inverted in float64 from the float32 linearization,
+    zero for fixed and invalid nodes."""
+    from mrg_slam_tpu_torch.graph import solve
+
+    lin = solve.linearize(g)
+    n = g.n_nodes
+    H = torch.zeros(6 * n, 6 * n, dtype=torch.float64, device=g.poses.device)
+    ar = torch.arange(6, device=H.device)
+    ends = ((g.se3.from_idx.long(), lin.Ji.double()),
+            (g.se3.to_idx.long(), lin.Jj.double()))
+    for ia, Ja in ends:
+        for ib, Jb in ends:
+            H.index_put_((ia[:, None, None] * 6 + ar[:, None],
+                          ib[:, None, None] * 6 + ar),
+                         Ja.transpose(1, 2) @ lin.W_se3.double() @ Jb,
+                         accumulate=True)
+    fn, _ = solve._free_masks(g)
+    idx = torch.nonzero(fn[:, 0].bool().repeat_interleave(6))[:, 0]
+    inv = torch.zeros_like(H)
+    inv[idx[:, None], idx[None, :]] = torch.linalg.inv(
+        H[idx][:, idx] + ridge * torch.eye(len(idx), dtype=H.dtype,
+                                           device=H.device))
+    return inv.view(n, 6, n, 6).diagonal(dim1=0, dim2=2).permute(
+        2, 0, 1).cpu().numpy()
+
+
+def default_capacity_tick(torch, slam_graph, dev):
+    """ROADMAP fault 3.1 on the card: the full-SLAM run's final graph in a
+    GraphSLAM of the default capacities (2048 nodes, so a dense LM at D =
+    12288) with the default OptimizerConfig (marginals "auto" -> cg), once
+    to warm up and SOLVER_REPS times timed; held to the same graph at its
+    run's capacity (chi2) and to the float64 inverse of H + CG_RIDGE I
+    (marginals)."""
+    from mrg_slam_tpu_torch.config import OptimizerConfig
+    from mrg_slam_tpu_torch.graph.builder import GraphSLAM
+
+    cfg = OptimizerConfig()
+    cap = slam_graph.cap
+    n = slam_graph.num_nodes
+    small = copy_graph(slam_graph, cfg, cap["nodes"], cap["edges"], dev)
+    small.optimize()
+    default = GraphSLAM(cfg, device=dev).cap
+    runs = []
+    for _ in range(1 + SOLVER_REPS):
+        big = copy_graph(slam_graph, cfg, default["nodes"], default["edges"],
+                         dev)
+        big.optimize()
+        runs.append(big)
+    big = runs[-1]
+    lm = float(np.median([r.last_lm_ms for r in runs[1:]]))
+    marg = float(np.median([r.last_marginals_ms for r in runs[1:]]))
+    rel = check_chi2("default-capacity tick", big.chi2_final,
+                     small.chi2_final, "the run's capacity")
+    small._poses[:n] = big.poses
+    g = small.snapshot()
+    exact = exact_marginals64(torch, g, CG_RIDGE)[:n]
+    gap = float(np.abs(exact_marginals64(torch, g, 1e-9)[:n] - exact).max())
+    cov = big.last_marginals
+    if cov is None or cov.shape != (n, 6, 6) or not np.isfinite(cov).all():
+        raise AssertionError("default-capacity tick: no finite marginals")
+    bad = np.abs(cov - exact) > CG_MARG_ATOL + CG_MARG_RTOL * np.abs(exact)
+    err = float(np.abs(cov - exact).max())
+    log(f"# default-capacity tick (fault 3.1): {n} keyframes, "
+        f"{slam_graph.num_edges} edges in a store of {big.cap} with the "
+        f"default OptimizerConfig (dense LM at D = {6 * big.cap['nodes']}, "
+        f"cg marginals): LM {lm:.1f} ms, {big.last_iterations} iterations, "
+        f"marginals {marg:.1f} ms; chi2 {big.chi2_final:.6f} against "
+        f"{small.chi2_final:.6f} at capacity {cap['nodes']} (rel {rel:.2e}); "
+        f"cg marginals against the float64 inverse of H + {CG_RIDGE} I: "
+        f"max |diff| {err:.3e} of {float(np.abs(exact).max()):.3e}, "
+        f"{int(bad.sum())} entries outside rtol {CG_MARG_RTOL} + atol "
+        f"{CG_MARG_ATOL} (that inverse and the one of H + 1e-9 I, the dense "
+        f"path's, differ by up to {gap:.3e})")
+    if bad.any():
+        raise AssertionError("default-capacity tick: cg marginals off the "
+                             "exact ones")
+    return dict(nodes=n, capacity=big.cap, lm_ms=lm, marginals_ms=marg,
+                lm_iterations=big.last_iterations, chi2=big.chi2_final,
+                chi2_run_capacity=small.chi2_final, chi2_rel=rel,
+                marginals_max_abs_err=err, ridge_gap=gap)
+
+
+def solver_phase(torch, dev, slam_graph):
+    """bench.py's solver section on the card at its own width, row 5's
+    single-device half, and the default-capacity tick -> metrics."""
+    from mrg_slam_tpu_torch.graph import chain_solver, solve
+    from mrg_slam_tpu_torch.pipeline.baseline_runs import build_ring_graph
+
+    t_phase = time.perf_counter()
+    out = {}
+    g5 = build_ring_graph(256, device=dev).snapshot()
+    out["cg_256"], _ = timed_solve(torch, g5, "cg", 40,
+                                   "cg 256 nodes (row 5)")
+    out["cg_256"]["chi2_rel_row5"] = check_chi2(
+        "cg 256", out["cg_256"]["chi2_final"], ROW5_CHI2, "row 5's")
+
+    solved = {}
+    for n, backend in ((1024, "dense"), (1024, "chain"), (8192, "chain")):
+        name = f"{backend}_{n}"
+        g = solver_graph(n, backend, dev).snapshot()
+        out[name], res = timed_solve(torch, g, backend, SOLVER_ITERS,
+                                     f"{backend} {n} nodes")
+        out[name]["chi2_rel_ref"] = check_chi2(
+            name, out[name]["chi2_final"], REF_SOLVERS[name],
+            "the JAX package's")
+        solved[name] = (g, res)
+    parity = check_chi2("chain 1024 vs dense 1024",
+                        out["chain_1024"]["chi2_final"],
+                        out["dense_1024"]["chi2_final"], "dense's")
+    log(f"# 1024-node chi2 parity dense vs chain: rel diff {parity:.2e}")
+    out["chain_dense_chi2_rel"] = parity
+
+    # where a 1024-node chain solve's time goes
+    g, _ = solved["chain_1024"]
+    aux = solve.chain_aux_for(g)
+    from mrg_slam_tpu_torch.config import OptimizerConfig
+    cfg = OptimizerConfig(solver_backend="chain",
+                          g2o_solver_num_iterations=SOLVER_ITERS)
+    out["chain_1024"]["profile"] = profiled_solve(
+        torch, lambda: solve.optimize(g, cfg, aux=aux),
+        out["chain_1024"]["ms"])
+    log(f"# profiled chain 1024 solve: {out['chain_1024']['profile']}")
+
+    # chain marginals at 1024 (solved poses) against the dense inverse
+    g, res = solved["chain_1024"]
+    g = g._replace(poses=res.poses)
+    cov = chain_solver.chain_marginals(g, solve.chain_aux_for(g), 64)
+    dense = solve.marginals(g, exact=True)
+    scale = float(dense[1:].abs().max())
+    diff = (cov - dense).abs()
+    bad = diff > CHAIN_DENSE_ATOL * scale + CHAIN_DENSE_RTOL * dense.abs()
+    out["marginals_1024_vs_dense_max_abs"] = float(diff.max())
+    log(f"# chain marginals 1024 against the dense inverse: max |diff| "
+        f"{float(diff.max()):.3e} of {scale:.3e}, {int(bad.sum())} entries "
+        f"outside rtol {CHAIN_DENSE_RTOL} + atol {CHAIN_DENSE_ATOL} x max")
+    if bool(bad.any()):
+        raise AssertionError("chain marginals at 1024 off the dense inverse")
+
+    # exact chain marginals of the unsolved 8192-node graph
+    g8, _ = solved["chain_8192"]
+    aux8 = solve.chain_aux_for(g8)
+    ms, reps, _ = timed(torch, lambda gk: chain_solver.chain_marginals(
+        gk, aux8, 64), g8)
+    cov = chain_solver.chain_marginals(g8, aux8, 64).cpu().numpy()
+    blocks = cov[MARGINAL_STRIDE::MARGINAL_STRIDE]
+    err = float(np.abs(blocks - REF_MARGINALS_8192).max())
+    rel = err / float(np.abs(REF_MARGINALS_8192).max())
+    out["marginals_8192"] = dict(ms=ms, reps_ms=reps, max_abs_err=err,
+                                 rel_err=rel)
+    log(f"# chain marginals 8192 nodes: {ms:.1f} ms (reps "
+        f"{[round(t, 1) for t in reps]}); sampled blocks against the exact "
+        f"reference: max |diff| {err:.3e}, {rel:.2e} of the largest entry "
+        f"(tolerance {MARGINAL_TOL})")
+    if not (np.isfinite(cov).all() and (cov[0] == 0).all()
+            and rel <= MARGINAL_TOL):
+        raise AssertionError("chain marginals at 8192 off the reference")
+
+    out["default_capacity_tick"] = default_capacity_tick(torch, slam_graph,
+                                                          dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"# solver phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -1488,6 +1907,7 @@ def main():
     mr_m, mr_launches, odo_nn, tick_nn, bucket = mr_phase(torch, mr)
     rows.extend(mr_kernel_rows(torch, mr, mr_launches, odo_nn, tick_nn,
                                bucket))
+    solver_m = solver_phase(torch, dev, slam_run.slam.db.graph)
     log(json.dumps({"frames_per_s": fps,
                     "pass1_frames_per_s": FRAMES / sum(run1.block_walls),
                     "ate_m": ate, "ref_ate_m": REF_ATE_M,
@@ -1496,6 +1916,7 @@ def main():
                     "stage_ms_per_frame": per_frame,
                     "full_slam": slam_m,
                     "multi_robot": {str(R): v for R, v in mr_m.items()},
+                    "solvers": solver_m,
                     "build_s": native.build_seconds}))
     log(f"# smoke run: {time.perf_counter() - t_start:.1f} s, kernel builds "
         "included")

@@ -1,0 +1,391 @@
+"""Large-graph linear solver: segmented block-tridiagonal Cholesky + Woodbury.
+
+Counterpart of the JAX package's graph/chain_solver.py, on one device. The
+reference solves 10k-node graphs through g2o's sparse cholmod LM
+(graph_slam.cpp:28-30,353); a dense (6N)^2 Hessian stops at 1-2k nodes and
+block-Jacobi PCG stalls on long graph diameters. This is the exact solver
+between them, built on how a SLAM Hessian is laid out:
+
+  H + damping = T + U U^T
+
+- T, block-tridiagonal: the odometry-chain SE3 edges (|from - to| = 1
+  under the builder's insertion-ordered node ids) and the LM damping.
+  Nodes are cut into S segments of K; each segment's dense (6(K-1))^2
+  interior is Cholesky-factored in one batched call, the interiors are
+  eliminated onto the S separator nodes (each segment's last), and the
+  6S x 6S reduced system is factored densely.
+- U U^T: every other edge (loop closures, inter-robot edges) enters as an
+  exact low-rank correction, 6 columns per coupling edge (U = J^T W^1/2
+  rows at its two ends), solved by the Woodbury identity
+      x = y - Y_U (I + U^T Y_U)^-1 U^T y,   y = T^-1 b,  Y_U = T^-1 U.
+  The number of coupling slots is a bucket chosen on the host (`_bucket`).
+
+Numerics as in the JAX package: float32 with symmetric Jacobi
+equilibration, `_sym_sqrt` a ridged Cholesky (not an eigendecomposition,
+so U is the JAX package's), and one matrix-free iterative-refinement pass
+against the damped Hessian. Y_U and the LU factors of I + U^T Y_U are
+formed once a step and serve both the solve and the refinement pass (the
+JAX package solves T for [b, U] twice; the columns are the same).
+
+Only the SE3-SE3 family is ported. The unary priors' blocks belong on T's
+diagonal (`_chain_T`) and the SE3-plane and plane-plane edges' columns in
+U (`_coupling_U`); they stay refused by solve.check_families until
+ROADMAP.md queue 1 item 12. A factorization that fails is reported through
+the `ok` flags, and the callers raise: no solve quietly becomes another.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import solve as S
+
+
+class ChainAux(NamedTuple):
+    """Coupling slots classified on the host (-1: a padding slot). Shapes
+    are the Woodbury buckets; values index the edge tables."""
+
+    se3_cidx: np.ndarray  # (m1,) int32 non-chain SE3 edges
+    pl_cidx: np.ndarray   # (m2,) int32 SE3-plane edges
+    qq_cidx: np.ndarray   # (m3,) int32 plane-plane edges
+
+
+def _bucket(n: int, lo: int = 8) -> int:
+    """Woodbury slot count: `lo` up to lo, 16 up to 16, then the next
+    multiple of 16 (a T-solve costs 6 columns a slot, so powers of two
+    paid up to twice the columns)."""
+    if n <= lo:
+        return lo
+    if n <= 16:
+        return 16
+    return ((n + 15) // 16) * 16
+
+
+def classify(from_idx: np.ndarray, to_idx: np.ndarray, mask: np.ndarray,
+             n_plane_edges: int, n_plane_plane: int,
+             pl_mask: Optional[np.ndarray] = None,
+             qq_mask: Optional[np.ndarray] = None) -> ChainAux:
+    """Coupling classification from numpy staging buffers.
+
+    A live SE3 edge is on the chain iff |from - to| == 1, which odometry
+    edges are under the builder's insertion-ordered ids (per-robot runs
+    of a merged graph too; an edge across another robot's id block just
+    becomes a coupling column). Everything else couples."""
+    from_idx = np.asarray(from_idx).astype(np.int64)
+    to_idx = np.asarray(to_idx).astype(np.int64)
+    live = np.flatnonzero(np.asarray(mask) & (np.abs(from_idx - to_idx) != 1))
+    m1 = _bucket(len(live))
+    se3_c = np.full(m1, -1, np.int32)
+    se3_c[: len(live)] = live
+    pl_live = (np.flatnonzero(pl_mask) if pl_mask is not None
+               else np.arange(n_plane_edges))
+    m2 = _bucket(len(pl_live), lo=1) if len(pl_live) else 1
+    pl_c = np.full(m2, -1, np.int32)
+    pl_c[: len(pl_live)] = pl_live
+    qq_live = (np.flatnonzero(qq_mask) if qq_mask is not None
+               else np.arange(n_plane_plane))
+    m3 = _bucket(len(qq_live), lo=1) if len(qq_live) else 1
+    qq_c = np.full(m3, -1, np.int32)
+    qq_c[: len(qq_live)] = qq_live
+    return ChainAux(se3_cidx=se3_c, pl_cidx=pl_c, qq_cidx=qq_c)
+
+
+def aux_to(aux: ChainAux, device: torch.device) -> ChainAux:
+    """The slots as int64 tensors on the device (one copy a solve)."""
+    return ChainAux(*(torch.as_tensor(a, dtype=torch.int64, device=device)
+                      for a in aux))
+
+
+def _sym_sqrt(W: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched G with G G^T = W + ridge, by Cholesky -> (G, ok). Any
+    factor of the edge's information serves Woodbury; the ridge (1e-12 +
+    1e-7 tr/d) keeps rank-deficient and zero-masked W factorable, and its
+    ~1e-7 relative error is taken out by chain_delta's refinement pass."""
+    d = W.shape[-1]
+    tr = torch.diagonal(W, dim1=-2, dim2=-1).sum(-1)[..., None, None]
+    eye = torch.eye(d, dtype=W.dtype, device=W.device)
+    G, info = torch.linalg.cholesky_ex(W + (1e-12 + 1e-7 * tr / d) * eye)
+    return G, (info == 0).all()
+
+
+class ChainFactors(NamedTuple):
+    cholA: torch.Tensor  # (S, mi, mi) per-segment interior Cholesky
+    E: torch.Tensor      # (S, mi, 12) interior -> [left, right] separators
+    F: torch.Tensor      # (S, mi, 12) A^-1 E
+    cholR: torch.Tensor  # (6S, 6S) reduced separator Cholesky
+    ok: torch.Tensor     # () every factorization succeeded
+
+
+def _chain_T(g, lin, lam, d_n, free_n):
+    """Block-tridiagonal T, damped and projected -> (Td (N, 6, 6), Toff
+    (N, 6, 6)) with Toff[i] = T[i, i+1] and Toff[N-1] = 0."""
+    n = g.n_nodes
+    Td = g.poses.new_zeros((n, 6, 6))
+    Toff = g.poses.new_zeros((n, 6, 6))
+    if lin.r_se3.shape[0]:
+        f, t = g.se3.from_idx.long(), g.se3.to_idx.long()
+        chain = g.se3.mask & ((f - t).abs() == 1)
+        Wc = lin.W_se3 * chain[:, None, None]
+        WJi, WJj = Wc @ lin.Ji, Wc @ lin.Jj
+        JiT, JjT = lin.Ji.transpose(1, 2), lin.Jj.transpose(1, 2)
+        Td = S._segment_sum(JiT @ WJi, f, n) + S._segment_sum(JjT @ WJj, t, n)
+        # the off-diagonal block H[lo, hi] = J_lo^T W J_hi, at slot lo
+        Hlh = torch.where((f < t)[:, None, None], JiT @ WJj, JjT @ WJi)
+        Toff = S._segment_sum(Hlh, torch.minimum(f, t), n)
+    # (the unary priors' J^T W J blocks add to Td here: item 12)
+
+    # damping (lam diag(H) + 1e-6, as dense_delta) and projection
+    damp = (lam * d_n + 1e-6) * free_n[:, 0:1]
+    eye = torch.eye(6, dtype=Td.dtype, device=Td.device)
+    Td = (Td * (free_n[:, :, None] * free_n[:, None, :])
+          + eye * (1.0 - free_n[:, 0, None, None])
+          + torch.diag_embed(damp))
+    both_free = free_n[:-1, 0] * free_n[1:, 0]
+    Toff = torch.cat([Toff[:-1] * both_free[:, None, None],
+                      torch.zeros_like(Toff[-1:])])
+    return Td, Toff
+
+
+def _factor_T(Td: torch.Tensor, Toff: torch.Tensor, K: int) -> ChainFactors:
+    """Two-level factorization of block-tridiagonal T: segments of K
+    nodes, interiors their first K-1 nodes, separators their last;
+    batched interior Cholesky, Schur complement onto the separators,
+    dense reduced Cholesky."""
+    n = Td.shape[0]
+    if n % K:
+        raise ValueError(f"node capacity {n} is not a multiple of K={K}")
+    Sg, mi = n // K, 6 * (K - 1)
+    dev = Td.device
+    A = Td.new_zeros((Sg, K - 1, K - 1, 6, 6))
+    ii = torch.arange(K - 1, device=dev)
+    A[:, ii, ii] = Td.view(Sg, K, 6, 6)[:, : K - 1]
+    if K > 2:
+        jj = torch.arange(K - 2, device=dev)
+        Oseg = Toff.view(Sg, K, 6, 6)[:, : K - 2]
+        A[:, jj, jj + 1] = Oseg
+        A[:, jj + 1, jj] = Oseg.transpose(-1, -2)
+    A = A.permute(0, 1, 3, 2, 4).reshape(Sg, mi, mi)
+    cholA, info_a = torch.linalg.cholesky_ex(A)
+
+    # interior -> separator couplings E (S, mi, 12): columns 0:6 the left
+    # separator (segment s-1's last node, by Toff[sK-1]^T at interior row
+    # 0), columns 6:12 the right one (own last node, Toff[sK+K-2] at row
+    # K-2)
+    segs = torch.arange(Sg, device=dev)
+    left = Toff[torch.clamp(segs * K - 1, min=0)] * (segs > 0)[:, None, None]
+    right = Toff.view(Sg, K, 6, 6)[:, K - 2]
+    E = Td.new_zeros((Sg, K - 1, 6, 12))
+    E[:, 0, :, 0:6] = left.transpose(-1, -2)
+    E[:, K - 2, :, 6:12] = right
+    E = E.view(Sg, mi, 12)
+    F = torch.cholesky_solve(E, cholA)
+
+    # the reduced separator system, block-tridiagonal, assembled dense
+    G = E.transpose(1, 2) @ F                        # (S, 12, 12)
+    Rd = Td.view(Sg, K, 6, 6)[:, K - 1] - G[:, 6:12, 6:12]
+    Rd = Rd - torch.cat([G[1:, 0:6, 0:6], torch.zeros_like(G[:1, :6, :6])])
+    Ro = -G[1:, 0:6, 6:12]                           # R[s-1, s], s >= 1
+    R = Td.new_zeros((Sg, Sg, 6, 6))
+    R[segs, segs] = Rd
+    R[segs[:-1], segs[:-1] + 1] = Ro
+    R[segs[:-1] + 1, segs[:-1]] = Ro.transpose(-1, -2)
+    cholR, info_r = torch.linalg.cholesky_ex(
+        R.permute(0, 2, 1, 3).reshape(6 * Sg, 6 * Sg))
+    ok = (info_a == 0).all() & (info_r == 0)
+    return ChainFactors(cholA=cholA, E=E, F=F, cholR=cholR, ok=ok)
+
+
+def _solve_T(fac: ChainFactors, b: torch.Tensor, K: int) -> torch.Tensor:
+    """T^-1 applied to stacked right-hand sides b (N, 6, k)."""
+    n, _, k = b.shape
+    Sg, mi = n // K, 6 * (K - 1)
+    bv = b.reshape(Sg, K, 6, k)
+    y = torch.cholesky_solve(bv[:, : K - 1].reshape(Sg, mi, k), fac.cholA)
+    r_red = fac.E.transpose(1, 2) @ y                # (S, 12, k)
+    r_sep = bv[:, K - 1] - r_red[:, 6:12]
+    r_sep = r_sep - torch.cat([r_red[1:, 0:6],
+                               torch.zeros_like(r_red[:1, 0:6])])
+    x_sep = torch.cholesky_solve(r_sep.reshape(6 * Sg, k),
+                                 fac.cholR).view(Sg, 6, k)
+    # each segment's [left, right] separator values
+    x_lr = torch.cat([torch.cat([torch.zeros_like(x_sep[:1]), x_sep[:-1]]),
+                      x_sep], dim=1)                 # (S, 12, k)
+    x_int = (y - fac.F @ x_lr).view(Sg, K - 1, 6, k)
+    return torch.cat([x_int, x_sep[:, None]], dim=1).reshape(n, 6, k)
+
+
+# one coupling family's columns: (kind, idx_a, U_a (m, 6, 6), idx_b, U_b)
+Parts = List[Tuple[str, torch.Tensor, torch.Tensor, torch.Tensor,
+                   torch.Tensor]]
+
+
+def _coupling_U(g, lin, aux: ChainAux, free_n, sc_n) -> Tuple[Parts,
+                                                               torch.Tensor]:
+    """The Woodbury columns, kept factored by edge end and scaled like b:
+    coupling edge c gives a 6-wide column block with rows U_from[c] =
+    J_from^T W^1/2 at its 'from' node and U_to[c] at 'to'. A padding slot
+    (-1) factors the ridge of a zero W, as in the JAX package. -> (parts,
+    ok)."""
+    parts: Parts = []
+    ok = torch.ones((), dtype=torch.bool, device=g.poses.device)
+    if lin.r_se3.shape[0] and aux.se3_cidx.shape[0]:
+        e = torch.clamp(aux.se3_cidx, min=0)
+        valid = (aux.se3_cidx >= 0) & g.se3.mask[e]
+        Wh, ok = _sym_sqrt(lin.W_se3[e] * valid[:, None, None])
+        f, t = g.se3.from_idx[e].long(), g.se3.to_idx[e].long()
+        Uf = lin.Ji[e].transpose(1, 2) @ Wh * (free_n[f] * sc_n[f])[..., None]
+        Ut = lin.Jj[e].transpose(1, 2) @ Wh * (free_n[t] * sc_n[t])[..., None]
+        parts.append(("nn", f, Uf, t, Ut))
+    # (the SE3-plane and plane-plane families add their "np" and "pp"
+    # column blocks here: item 12)
+    return parts, ok
+
+
+def _U_dense(parts: Parts, n: int, mtot: int,
+             like: torch.Tensor) -> torch.Tensor:
+    """U as right-hand sides: (N, 6, 6m) node rows."""
+    U = like.new_zeros((n, 6, 6 * mtot))
+    rows = torch.arange(6, device=like.device)[None, :, None]
+    off = 0
+    for _, ia, Ua, ib, Ub in parts:
+        m = Ua.shape[0]
+        cols = (off * 6 + torch.arange(6 * m, device=like.device)
+                ).view(m, 1, 6)
+        U.index_put_((ia[:, None, None], rows, cols), Ua, accumulate=True)
+        U.index_put_((ib[:, None, None], rows, cols), Ub, accumulate=True)
+        off += m
+    return U
+
+
+def _Ut_dot(parts: Parts, Y: torch.Tensor) -> torch.Tensor:
+    """U^T Y from U's two-ends sparsity; Y (N, 6, k) -> (6m, k)."""
+    outs = []
+    for _, ia, Ua, ib, Ub in parts:
+        o = Ua.transpose(1, 2) @ Y[ia] + Ub.transpose(1, 2) @ Y[ib]
+        outs.append(o.reshape(-1, Y.shape[-1]))
+    return torch.cat(outs, dim=0)
+
+
+def _scales(d_n, free_n, lam):
+    """Symmetric Jacobi equilibration in the damped metric (dense_delta's
+    rescale: float32 Cholesky of a raw SLAM Hessian stalls LM)."""
+    sc = torch.rsqrt(torch.clamp((1 + lam) * d_n + 1e-6, min=1e-12)) * free_n
+    return torch.where(free_n > 0, sc, torch.ones_like(sc))
+
+
+def _scaled_T(g, lin, lam, d_n, free_n, sc, K) -> ChainFactors:
+    Td, Toff = _chain_T(g, lin, lam, d_n, free_n)
+    Td = Td * sc[:, :, None] * sc[:, None, :]
+    Toff = Toff * sc[:, :, None] * torch.roll(sc, -1, 0)[:, None, :]
+    return _factor_T(Td, Toff, K)
+
+
+def chain_delta(g, lin, lam, aux: ChainAux, K: int):
+    """Exact damped Newton step by T + U U^T Woodbury: dense_delta's
+    counterpart in the LM -> (dx (N, 6), predicted chi2 reduction, ok)."""
+    n = g.n_nodes
+    free_n, _ = S._free_masks(g)
+    d_n = torch.diagonal(S.block_diagonal(g, lin), dim1=-2, dim2=-1)
+    g_n, _ = S.gradient(g, lin)
+    sc = _scales(d_n, free_n, lam)
+    fac = _scaled_T(g, lin, lam, d_n, free_n, sc, K)
+    parts, ok = _coupling_U(g, lin, aux, free_n, sc)
+    ok = ok & fac.ok
+    mtot = sum(p[2].shape[0] for p in parts)
+
+    if mtot:
+        Y_U = _solve_T(fac, _U_dense(parts, n, mtot, sc), K)
+        LU, piv, info = torch.linalg.lu_factor_ex(
+            torch.eye(6 * mtot, dtype=sc.dtype, device=sc.device)
+            + _Ut_dot(parts, Y_U))
+        ok = ok & (info == 0)
+
+    def wsolve(r):
+        """(T + U U^T)^-1 r in the scaled space, r (N, 6, 1)."""
+        y = _solve_T(fac, r, K)
+        if not mtot:
+            return y
+        z = torch.linalg.lu_solve(LU, piv, _Ut_dot(parts, y))
+        return y - Y_U @ z
+
+    b = (-g_n * sc)[..., None]
+    x = wsolve(b)
+    # one refinement pass against the full damped Hessian (matrix-free)
+    # in the scaled space: H^ v = S H S v + damping, and a unit diagonal
+    # on projected-out dofs
+    hvp = S.make_hvp(g, lin)
+    scv = sc[..., None]
+    Hx = (hvp(x * scv) * scv + ((lam * d_n + 1e-6) * sc * sc)[..., None] * x
+          + (1.0 - (free_n > 0).to(x.dtype))[..., None] * x)
+    x = x + wsolve(b - Hx)
+    dx = x[..., 0] * sc * (free_n > 0)
+    return dx, torch.sum(dx * (lam * d_n * dx - g_n)), ok
+
+
+def chain_marginals(g, aux: ChainAux, K: int) -> torch.Tensor:
+    """Per-node 6x6 covariance blocks, the diagonal of H^-1, by the same
+    factorization and Woodbury identity as the chain step (lam = 0):
+
+      H^-1 = T^-1 - Y S^-1 Y^T,   Y = T^-1 U,  S = I + U^T Y,
+
+    with T^-1's diagonal blocks read off the two-level factors (interior
+    blocks A^-1 + F Sigma_lr F^T, separator blocks off R^-1) and the
+    correction taken at the diagonal only. T's 1e-6 ridge makes weakly
+    constrained dofs slightly more conservative than the dense path's
+    1e-9. Returns (N, 6, 6), zero for fixed and invalid nodes; raises
+    RuntimeError when a factorization fails (one host read)."""
+    n = g.n_nodes
+    dev = g.poses.device
+    aux = aux_to(aux, dev)
+    S.check_families(g)
+    lin = S.LinearizedGraph(*(a.double() for a in S.linearize(g)))
+    free_n, _ = S._free_masks(g)
+    d_n = torch.diagonal(S.block_diagonal(g, lin), dim1=-2, dim2=-1)
+    lam = torch.zeros((), dtype=d_n.dtype, device=dev)
+    sc = _scales(d_n, free_n, lam)
+    fac = _scaled_T(g, lin, lam, d_n, free_n, sc, K)
+    Sg, mi = n // K, 6 * (K - 1)
+
+    # T^-1's diagonal blocks. Separators: blocks of the reduced inverse
+    eye_r = torch.eye(6 * Sg, dtype=sc.dtype, device=dev)
+    Rb = torch.cholesky_solve(eye_r, fac.cholR).view(
+        Sg, 6, Sg, 6).permute(0, 2, 1, 3)            # (S, S, 6, 6)
+    ss = torch.arange(Sg, device=dev)
+    sep_cov = Rb[ss, ss]
+    # each segment's [left, right] separator covariance (12, 12); segment
+    # 0 has no left separator
+    sm1 = torch.clamp(ss - 1, min=0)
+    has_left = (ss > 0).to(sc.dtype)[:, None, None]
+    ll, lr = Rb[sm1, sm1] * has_left, Rb[sm1, ss] * has_left
+    Slr = torch.cat([torch.cat([ll, lr], dim=2),
+                     torch.cat([lr.transpose(-1, -2), sep_cov], dim=2)],
+                    dim=1)
+    # interiors: A^-1's diagonal blocks plus the separators' feedback
+    eye_a = torch.eye(mi, dtype=sc.dtype, device=dev).repeat(Sg, 1, 1)
+    Ainv = torch.cholesky_solve(eye_a, fac.cholA).view(Sg, K - 1, 6, K - 1,
+                                                       6)
+    Aind = Ainv.diagonal(dim1=1, dim2=3).permute(0, 3, 1, 2)
+    Fseg = fac.F.view(Sg, K - 1, 6, 12)
+    int_cov = Aind + Fseg @ Slr[:, None] @ Fseg.transpose(-1, -2)
+    covT = torch.cat([int_cov, sep_cov[:, None]], dim=1).reshape(n, 6, 6)
+
+    # the Woodbury correction at the diagonal
+    parts, ok = _coupling_U(g, lin, aux, free_n, sc)
+    ok = ok & fac.ok
+    mtot = sum(p[2].shape[0] for p in parts)
+    if mtot:
+        Y = _solve_T(fac, _U_dense(parts, n, mtot, sc), K)
+        eye_m = torch.eye(6 * mtot, dtype=sc.dtype, device=dev)
+        Smat = eye_m + _Ut_dot(parts, Y)
+        cS, info = torch.linalg.cholesky_ex(0.5 * (Smat + Smat.T)
+                                            + 1e-9 * eye_m)
+        ok = ok & (info == 0)
+        Z = torch.cholesky_solve(Y.reshape(n * 6, 6 * mtot).T, cS).T
+        covT = covT - Y @ Z.reshape(n, 6, 6 * mtot).transpose(1, 2)
+    if not bool(ok):
+        raise RuntimeError("chain marginals: a factorization failed")
+    cov = covT * sc[:, :, None] * sc[:, None, :]
+    return (cov * (free_n > 0)[:, :, None]).to(g.poses.dtype)

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card,
+and the paths around them (pair program, ticks, large-graph solvers)
+against the same on the CPU.
 
 Needs a CUDA card (marker `cuda`); without one every test skips. On a
 machine with a card and without JAX (tests/conftest.py imports it):
@@ -498,3 +500,59 @@ def test_shared_graph_ticks_on_the_card_match_the_cpu(dev):
     for name in names:
         assert np.abs(gpu.trajectory(name)[:, :3]
                       - cpu.trajectory(name)[:, :3]).max() < 1e-3
+
+
+def _solver_ring(device, n=256):
+    """bench.py's solver graph at n nodes: build_ring_graph(seed 0) and
+    n/128 Huber chords across it."""
+    from mrg_slam_tpu_torch.pipeline.baseline_runs import build_ring_graph
+    from mrg_slam_tpu_torch.utils import se3np
+
+    gs = build_ring_graph(n_nodes=n, capacity_nodes=n, capacity_edges=2 * n,
+                          seed=0, device=device)
+    info = np.diag([100.0] * 3 + [400.0] * 3).astype(np.float32)
+    for i in range(0, n - n // 2, 64):
+        j = i + n // 2
+        gs.add_se3_edge(i, j, se3np.pose_between(gs.poses[i], gs.poses[j]),
+                        info * 0.25, kernel="Huber", kernel_delta=1.0)
+    return gs
+
+
+@pytest.mark.parametrize("backend", ["cg", "chain"])
+def test_large_graph_lm_on_the_card_matches_the_cpu(dev, backend):
+    """The cg and chain LM backends on the card against the CPU port
+    (tests/test_torch_cg.py and test_torch_chain.py hold the CPU to the
+    JAX package) on a 256-node ring with chords: chi2 within rel 1e-3,
+    the ROADMAP's solver gate, and poses within 1e-2 m (the two devices'
+    float32 rounding moves a 40-iteration LM on a 20 m ring by mm)."""
+    from mrg_slam_tpu_torch.config import OptimizerConfig
+    from mrg_slam_tpu_torch.graph import solve
+
+    cfg = OptimizerConfig(solver_backend=backend,
+                          g2o_solver_num_iterations=40)
+    gpu = solve.optimize(_solver_ring(dev).snapshot(), cfg)
+    cpu = solve.optimize(_solver_ring("cpu").snapshot(), cfg)
+    np.testing.assert_allclose(float(gpu.chi2_initial),
+                               float(cpu.chi2_initial), rtol=1e-5)
+    np.testing.assert_allclose(float(gpu.chi2_final), float(cpu.chi2_final),
+                               rtol=1e-3)
+    assert float(gpu.chi2_final) < 0.01 * float(gpu.chi2_initial)
+    assert np.abs(gpu.poses.cpu().numpy()[:, :3]
+                  - cpu.poses.numpy()[:, :3]).max() < 1e-2
+
+
+def test_chain_marginals_on_the_card_match_the_cpu(dev):
+    """chain_marginals (float64 inside) on the card against the CPU port
+    on the same ring: within 1e-4 of the largest entry (the float32
+    linearizations of the two devices round differently), the fixed node
+    zero."""
+    from mrg_slam_tpu_torch.graph import chain_solver, solve
+
+    out = []
+    for device in (dev, "cpu"):
+        g = _solver_ring(device).snapshot()
+        out.append(chain_solver.chain_marginals(
+            g, solve.chain_aux_for(g), 64).cpu().numpy())
+    gpu, cpu = out
+    assert np.isfinite(gpu).all() and (gpu[0] == 0).all()
+    assert np.abs(gpu - cpu).max() <= 1e-4 * np.abs(cpu).max()

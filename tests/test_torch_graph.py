@@ -225,17 +225,23 @@ def test_np_table_grow_doubles_and_keeps_rows():
 
 
 def test_unported_solvers_and_families_raise(ring):
+    """The large-graph solvers resolve (ROADMAP item 13, once refused
+    here); the prior and plane families still raise (item 12)."""
     g = _port(ring)
     for backend in ("cg", "chain"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            solve.optimize(g, dataclasses.replace(CFG,
-                                                  solver_backend=backend))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        solve.resolve_backend("auto", 4096)
+        res = solve.optimize(g, dataclasses.replace(
+            CFG, solver_backend=backend))
+        np.testing.assert_allclose(float(res.chi2_final), ring["chi2"][1],
+                                   rtol=1e-3)
     assert solve.resolve_backend("auto", 2048) == "dense"
-    with pytest.raises(NotImplementedError, match="item 13"):
-        solve.resolve_marginals_mode("auto", 1024)
+    assert solve.resolve_backend("auto", 2049) == "chain"
+    assert solve.resolve_backend("auto", 4096) == "chain"
+    assert solve.resolve_backend("cg", 8192) == "cg"
+    with pytest.raises(ValueError):
+        solve.resolve_backend("cholmod", 64)
     assert solve.resolve_marginals_mode("auto", 512) == "exact"
+    assert solve.resolve_marginals_mode("auto", 1024) == "cg"
+    assert solve.resolve_marginals_mode("auto", 2048) == "cg"
     # an empty prior table is elided, one holding an edge is refused
     spare = PoseGraphData.empty(32, 64, n_priors=4)
     g2 = g._replace(priors=spare.priors)
