@@ -55,7 +55,23 @@ drives two paths at full width on bench.py's production world:
   (dense LM at D = 12288, cg marginals: ROADMAP fault 3.1), held to the
   same graph at its run's capacity and to a float64 inverse.
   This phase launches no hand-written kernel (the solvers are plain
-  torch ops, as the JAX package's are XLA code).
+  torch ops, as the JAX package's are XLA code);
+- acceptance rows 1, 2 and 7 at their own width (8192 raw -> 1024
+  filtered points, the JAX package's baseline_runs._base_cfg()), through
+  the port's `pipeline.baseline_runs`: row 1 per frame
+  (`ScanMatchingOdometry`) and fused, row 2 through `replay` and
+  `replay_fused`, row 7 (moving occluders) through `replay`, and row 1
+  with kNN covariances and STATISTICAL removal. Per row it prints ATE,
+  RPE, loops, keyframes, frames/s, odometry GN iterations and host reads
+  a frame, and the kernels' launches. It fails on an ATE above
+  max(ref + 0.05 m, 1.2 ref), keyframes more than 2 from ref's, a SLAM
+  row without a loop or more than max(2, 0.2 ref) loops from ref's (ref:
+  the JAX package on the same frames on the CPU,
+  `tools/replay_reference.py`), a fused row more than 0.02 m ATE or 2
+  keyframes from its per-frame row, or row 2 run again giving keyframe
+  poses that differ by a bit. nn (bitwise) and moments are then held to
+  their plain versions and timed at this path's shape, one frame of 1024
+  lanes.
 
 Any failed check raises. The last line of standard output is {"ok": true,
 "device": {...}}; the line before it lists every kernel with its
@@ -74,6 +90,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 from typing import NamedTuple
 
@@ -96,6 +113,29 @@ REF_ATE_M = 0.2813718731443308
 REF_SLAM = dict(ate_m=0.2663814268413071, ate_odom_m=0.49454696107988355,
                 keyframes=152, loops=32)
 PAIR_ROWS = 64  # the pair program's bucket cap at 8192 points
+# acceptance rows 1, 2 and 7 (BASELINE_SYNTH.json; the JAX package's
+# pipeline/baseline_runs.py) at their own width, not cut: 8192 raw -> 1024
+# filtered points, `_base_cfg()`, 120 / 120 / 110 frames; and row 1 with
+# kNN covariances (k = 10) and STATISTICAL removal (mean_k 30, stddev
+# 1.2). The JAX package's ATE, RPE, loops and keyframes on the same frames,
+# on the CPU (`python tools/replay_reference.py`, 113 s on the CPU)
+REF_REPLAY = {
+    "1_odometry_only": dict(ate_m=0.09507580262005157,
+                            rpe_m=0.01687155200439788, keyframes=40),
+    "1_odometry_only_fused": dict(ate_m=0.0950781604706768,
+                                  rpe_m=0.016871222866379987, keyframes=40),
+    "2_full_graph_slam": dict(ate_m=0.13288754944407308,
+                              rpe_m=0.018699824062730613, loops=7,
+                              keyframes=40),
+    "2_full_graph_slam_fused": dict(ate_m=0.1330455984638998,
+                                    rpe_m=0.0187545811226256, loops=7,
+                                    keyframes=40),
+    "7_dynamic_objects": dict(ate_m=0.1499832820451191,
+                              rpe_m=0.016892958604078728, loops=3,
+                              keyframes=37),
+    "1_odometry_only_knn_statistical": dict(ate_m=0.038195636673024086,
+                                            rpe_m=0.019746068085211396,
+                                            keyframes=40)}
 # bench.py's multi-robot section (run_multirobot_scaling, bench.py:277-475)
 # at its own width: build_world_and_scans(n_frames=160, laps=1.0)
 # (bench.py:71-81; 32768 raw points a scan, 4096 filtered), a fixed
@@ -699,8 +739,9 @@ def mr_phase(torch, inp):
 
 
 def timed_row(torch, name, source, replaces, fk, fp, flib, launches, err,
-              bound_ms, bound_by):
-    """One kernel row of the kernels line, its times measured here."""
+              bound_ms, bound_by, where="the R = 4 timed run"):
+    """One kernel row of the kernels line, its times measured here;
+    `launches` were counted in `where`."""
     row = dict(name=name, route="cuda", source=source, replaces=replaces,
                launches=launches, max_abs_err=err, ms=cuda_ms(torch, fk),
                device_ms=graph_ms(torch, fk), plain_ms=cuda_ms(torch, fp),
@@ -709,8 +750,8 @@ def timed_row(torch, name, source, replaces, fk, fp, flib, launches, err,
     log(f"# {name}: kernel {row['ms']:.4f} ms around one call "
         f"({row['device_ms']:.4f} ms a launch in a CUDA graph), plain "
         f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}); {launches} launches in the "
-        "R = 4 timed run")
+        f"bound {bound_ms:.4f} ms ({bound_by}); {launches} launches in "
+        f"{where}")
     return row
 
 
@@ -846,6 +887,295 @@ def mr_kernel_rows(torch, inp, launches, odo_nn, tick_nn, bucket):
                blk_pts.numel() * 4 + blk_pts.shape[0] * blk_pts.shape[1]
                * 40)))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# acceptance rows 1, 2 and 7: per-frame odometry and replay
+# ---------------------------------------------------------------------------
+
+class GnCounter:
+    """Installed over `registration._run_stage`, the Gauss-Newton loop of
+    every single-row solve (the odometry's, per frame or fused; the pair
+    program runs `_run_rows`): sums the iterations it ran and passes every
+    call on. The count is a Python int it returns, so this reads nothing
+    from the card."""
+
+    def __init__(self, reg):
+        self.reg, self.fn, self.iterations = reg, reg._run_stage, 0
+
+    def __enter__(self):
+        self.reg._run_stage = self
+        return self
+
+    def __exit__(self, *exc):
+        self.reg._run_stage = self.fn
+
+    def __call__(self, *args):
+        out = self.fn(*args)
+        self.iterations += out[1]
+        return out
+
+
+def knn_statistical_cfg(bl):
+    """Row 1's config with kNN covariances (k = reg_correspondence_
+    randomness = 10) and STATISTICAL removal (the defaults, mean_k 30,
+    stddev 1.2), as tools/replay_reference.py builds it."""
+    cfg = bl._base_cfg()
+    odo, slam = cfg.odometry, cfg.slam
+    return dataclasses.replace(
+        cfg,
+        prefilter=dataclasses.replace(cfg.prefilter,
+                                      outlier_removal_method="STATISTICAL"),
+        odometry=dataclasses.replace(odo, registration=dataclasses.replace(
+            odo.registration, reg_covariance_mode="knn")),
+        slam=dataclasses.replace(slam, registration=dataclasses.replace(
+            slam.registration, reg_covariance_mode="knn")))
+
+
+def replay_row(torch, name, run):
+    """One acceptance row through the port's entry point, the kernels'
+    counts from 0 just before it: -> its metrics. The host reads are the
+    synchronizing CUDA calls `torch.cuda.set_sync_debug_mode("warn")`
+    reports while the row runs (each costs a Python warning, a few us)."""
+    from mrg_slam_tpu_torch.ops import nn_kernel, stats_kernel
+    from mrg_slam_tpu_torch.ops import registration as reg
+
+    counters = (nn_kernel.nn_cuda, stats_kernel.moments_cuda,
+                stats_kernel.count_cuda)
+    for fn in counters:
+        fn.launches = 0
+    with GnCounter(reg) as gn, warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            r = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    reads = sum(1 for w in seen if "synchroniz" in str(w.message))
+    n = r["frames"]
+    m = dict(ate_m=r["ate_rmse"], rpe_m=r["rpe_rmse"], loops=r.get("loops"),
+             keyframes=r["keyframes"], frames=n,
+             frames_per_s=r["frames_per_s"],
+             gn_iterations_per_frame=gn.iterations / n,
+             host_reads_per_frame=reads / n,
+             launches=dict(zip(("nn", "moments", "count"),
+                               (fn.launches for fn in counters))),
+             ref=REF_REPLAY[name])
+    log(f"# {name}: ATE {m['ate_m']:.4f} m (JAX CPU "
+        f"{m['ref']['ate_m']:.4f}), RPE {m['rpe_m']:.4f} m, loops "
+        f"{m['loops']}, keyframes {m['keyframes']} (JAX CPU "
+        f"{m['ref'].get('loops')}, {m['ref']['keyframes']}); "
+        f"{m['frames_per_s']:.2f} frames/s over {n} frames; GN iterations "
+        f"{m['gn_iterations_per_frame']:.2f} and host reads "
+        f"{m['host_reads_per_frame']:.2f} a frame; launches "
+        f"{m['launches']}")
+    return m, r
+
+
+def check_replay(name, m):
+    """ATE within max(ref + 0.05 m, 1.2 ref) of the JAX package's on the
+    CPU; loops on the SLAM rows: at least one, and within max(2, 0.2 ref)
+    of ref's; keyframes within 2 of ref's; nn launched once per odometry
+    GN iteration where no tick runs, moments in radius mode."""
+    ref = REF_REPLAY[name]
+    lim = max(ref["ate_m"] + 0.05, 1.2 * ref["ate_m"])
+    if not m["ate_m"] <= lim:
+        raise AssertionError(f"{name}: ATE {m['ate_m']:.4f} m > {lim:.4f}")
+    if "loops" in ref:
+        tol = max(2, 0.2 * ref["loops"])
+        if not (m["loops"] >= 1 and abs(m["loops"] - ref["loops"]) <= tol):
+            raise AssertionError(f"{name}: {m['loops']} loops, JAX CPU "
+                                 f"{ref['loops']}")
+    if abs(m["keyframes"] - ref["keyframes"]) > 2:
+        raise AssertionError(f"{name}: {m['keyframes']} keyframes, JAX CPU "
+                             f"{ref['keyframes']}")
+    gn = round(m["gn_iterations_per_frame"] * m["frames"])
+    if m["launches"]["nn"] <= 0:
+        raise AssertionError(f"{name}: nn never launched")
+    if name.startswith("1_") and m["launches"]["nn"] != gn:
+        raise AssertionError(f"{name}: nn launches {m['launches']['nn']} "
+                             f"!= odometry GN iterations {gn}")
+    if "knn" not in name and m["launches"]["moments"] <= 0:
+        raise AssertionError(f"{name}: moments never launched")
+
+
+def frame_kernel_rows(torch, launches):
+    """nn and moments at the per-frame path's shape, one frame of 1024
+    lanes: row 2's frames 1 onto 0 after prefilter on the card, with their
+    masks. nn bitwise to nn_plain, moments (radius 1.0, make_source's)
+    within the float32 summation bound; timed as the other rows, with
+    their launches over row 2's run."""
+    from mrg_slam_tpu_torch.io.synthetic import circle_trajectory
+    from mrg_slam_tpu_torch.ops import nn_kernel as nk
+    from mrg_slam_tpu_torch.ops import stats_kernel as sk
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud, pad_invalid
+    from mrg_slam_tpu_torch.ops.prefilter import prefilter
+    from mrg_slam_tpu_torch.pipeline import baseline_runs as bl
+
+    cfg = bl._base_cfg()
+    world = bl._world()
+    traj = circle_trajectory(120, radius=14.0, laps=1.25)
+    clouds = [prefilter(PointCloud.from_array(
+        world.scan(p, seed=i), cfg.prefilter.capacity_raw_points),
+        cfg.prefilter) for i, p in enumerate(traj[:2])]
+    src = clouds[1].points[None].contiguous()
+    sm = clouds[1].mask[None].contiguous()
+    tgt = clouds[0].points[None].contiguous()
+    tm = clouds[0].mask[None].contiguous()
+    err = check_nn(torch, nk, src, tgt, "one frame", sm, tm)
+    check_nn(torch, nk, src, tgt, "one frame, every lane")
+    pairs = float(sm.sum()) * float(tm.sum())
+    real_s, real_t = src[0][sm[0]], tgt[0][tm[0]]
+    log(f"# nn at the per-frame path's shape: 1 x {src.shape[1]} lanes, "
+        f"{int(sm.sum())} real sources onto {int(tm.sum())} real targets: "
+        "bitwise == plain on every lane, with and without the masks")
+
+    def lib_nn():
+        return torch.cdist(real_s[None], real_t[None],
+                           compute_mode="donot_use_mm_for_euclid_dist"
+                           ).min(dim=-1)
+
+    where = "row 2's per-frame run"
+    rows = [timed_row(
+        torch, "nn_frame", "mrg_slam_tpu_torch/csrc/nn.cu",
+        "mrg_slam_tpu/ops/pallas_nn.py:48",
+        lambda: nk.nn_cuda(src, tgt, sm, tm),
+        lambda: nk.nn_plain(src, tgt, sm, tm), lib_nn, launches["nn"], err,
+        *bound(pairs, 9, 0, (src.numel() + tgt.numel()) * 4
+               + src.shape[1] * 12), where=where)]
+
+    r2 = sk.radius_sq(cfg.odometry.registration.reg_covariance_radius)
+    pts = pad_invalid(clouds[0].points, clouds[0].mask)[None].contiguous()
+    err, inside = check_moments(torch, sk, pts, r2, "one frame", tm)
+    feats = torch.cat([torch.ones_like(real_t[:, :1]), real_t,
+                       *(real_t[:, a:a + 1] * real_t[:, b:b + 1]
+                         for a, b in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2),
+                                      (2, 2)))], dim=-1)
+    radius = float(cfg.odometry.registration.reg_covariance_radius)
+
+    def lib_moments():
+        return (torch.cdist(real_t, real_t,
+                            compute_mode="donot_use_mm_for_euclid_dist")
+                <= radius).float() @ feats
+
+    rows.append(timed_row(
+        torch, "moments_frame", "mrg_slam_tpu_torch/csrc/radius_stats.cu",
+        "mrg_slam_tpu/ops/pallas_stats.py:93",
+        lambda: sk.moments_cuda(pts, pts, r2, tm, tm),
+        lambda: sk.moments_plain(pts, pts, r2, tm, tm), lib_moments,
+        launches["moments"], err,
+        *bound(float(tm.sum()) ** 2, 9, 16 * inside,
+               pts.numel() * 4 + pts.shape[1] * 40), where=where))
+    return rows
+
+
+def profiled_frames(torch, n=12):
+    """Row 1's per-frame path (`prefilter`, `ScanMatchingOdometry.step`)
+    on frames 4 .. 4 + n after 4 warm frames, once unprofiled (wall) and
+    once under torch.profiler: device ms, device activities and GN
+    iterations a frame, the device's busy share of the unprofiled wall,
+    top ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mrg_slam_tpu_torch.io.synthetic import circle_trajectory
+    from mrg_slam_tpu_torch.models.odometry import ScanMatchingOdometry
+    from mrg_slam_tpu_torch.ops import registration as reg
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud
+    from mrg_slam_tpu_torch.ops.prefilter import prefilter
+    from mrg_slam_tpu_torch.pipeline import baseline_runs as bl
+
+    cfg = bl._base_cfg()
+    world = bl._world()
+    traj = circle_trajectory(120, radius=14.0, laps=1.1)
+    scans = [world.scan(p, seed=i) for i, p in enumerate(traj[:4 + n])]
+
+    def steps(odo, frames):
+        for i in frames:
+            odo.step(prefilter(PointCloud.from_array(
+                scans[i], cfg.prefilter.capacity_raw_points),
+                cfg.prefilter), i * 0.1)
+        torch.cuda.synchronize()
+
+    walls = []
+    for profiled in (False, True):
+        odo = ScanMatchingOdometry(cfg.odometry)
+        steps(odo, range(4))
+        with GnCounter(reg) as gn:
+            if profiled:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    steps(odo, range(4, 4 + n))
+            else:
+                t0 = time.perf_counter()
+                steps(odo, range(4, 4 + n))
+                walls.append(time.perf_counter() - t0)
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    avg = prof.key_averages()
+    dev_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / n
+    out = dict(frames=n, wall_ms_per_frame=walls[0] * 1e3 / n,
+               device_ms_per_frame=dev_ms,
+               device_activities_per_frame=len(device) / n,
+               gn_iterations_per_frame=gn.iterations / n,
+               busy=dev_ms / (walls[0] * 1e3 / n))
+    log(f"# row 1 per frame, {n} frames profiled: "
+        f"{out['wall_ms_per_frame']:.2f} ms of wall a frame unprofiled, "
+        f"device {dev_ms:.3f} ms in "
+        f"{out['device_activities_per_frame']:.0f} activities a frame "
+        f"(busy {out['busy']:.3f}), {out['gn_iterations_per_frame']:.2f} "
+        "GN iterations a frame")
+    log(avg.table(sort_by="self_device_time_total", row_limit=12))
+    log(avg.table(sort_by="self_cpu_time_total", row_limit=15))
+    return out
+
+
+def replay_phase(torch):
+    """Acceptance rows 1, 2 and 7 at their own width through the port's
+    entry points (`pipeline.baseline_runs`): row 1 per frame and fused,
+    row 2 through `replay` and `replay_fused`, row 7 through `replay`, row
+    1 with kNN covariances and STATISTICAL removal; row 2 once more for
+    determinism; a profile of row 1's per-frame path; then nn and moments
+    at the per-frame shape."""
+    from mrg_slam_tpu_torch.pipeline import baseline_runs as bl
+
+    t0 = time.perf_counter()
+    runs = (("1_odometry_only", lambda: bl.config1_odometry_only()),
+            ("1_odometry_only_fused",
+             lambda: bl.config1_odometry_only(fused=True)),
+            ("2_full_graph_slam", lambda: bl.config2_full_slam()),
+            ("2_full_graph_slam_fused",
+             lambda: bl.config2_full_slam(fused=True)),
+            ("7_dynamic_objects", lambda: bl.config7_dynamic_world()),
+            ("1_odometry_only_knn_statistical",
+             lambda: bl.config1_odometry_only(cfg=knn_statistical_cfg(bl))))
+    out, kf_row2 = {}, None
+    for name, run in runs:
+        m, r = replay_row(torch, name, run)
+        check_replay(name, m)
+        out[name] = m
+        if name == "2_full_graph_slam":
+            kf_row2 = r["keyframe_trajectory"]
+    for name in ("1_odometry_only", "2_full_graph_slam"):
+        a, b = out[name], out[name + "_fused"]
+        if not (abs(a["ate_m"] - b["ate_m"]) <= 0.02
+                and abs(a["keyframes"] - b["keyframes"]) <= 2):
+            raise AssertionError(f"{name}: fused ATE {b['ate_m']:.4f} m / "
+                                 f"{b['keyframes']} keyframes against "
+                                 f"{a['ate_m']:.4f} m / {a['keyframes']} "
+                                 "per frame")
+    log("# fused rows within 0.02 m ATE and 2 keyframes of their per-frame "
+        "rows")
+    again = bl.config2_full_slam()["keyframe_trajectory"]
+    if again.shape != kf_row2.shape or not (
+            again.view(np.uint32) == kf_row2.view(np.uint32)).all():
+        raise AssertionError("row 2 rerun: keyframe poses not bitwise "
+                             "identical")
+    log("# row 2 rerun: keyframe poses bitwise identical")
+    prof = profiled_frames(torch)
+    rows = frame_kernel_rows(torch, out["2_full_graph_slam"]["launches"])
+    phase_s = time.perf_counter() - t0
+    log(f"# replay phase: {phase_s:.1f} s")
+    return dict(rows=out, profile=prof, phase_s=phase_s), rows
 
 
 class FrontEndInputs(NamedTuple):
@@ -1908,6 +2238,8 @@ def main():
     rows.extend(mr_kernel_rows(torch, mr, mr_launches, odo_nn, tick_nn,
                                bucket))
     solver_m = solver_phase(torch, dev, slam_run.slam.db.graph)
+    replay_m, frame_rows = replay_phase(torch)
+    rows.extend(frame_rows)
     log(json.dumps({"frames_per_s": fps,
                     "pass1_frames_per_s": FRAMES / sum(run1.block_walls),
                     "ate_m": ate, "ref_ate_m": REF_ATE_M,
@@ -1917,6 +2249,7 @@ def main():
                     "full_slam": slam_m,
                     "multi_robot": {str(R): v for R, v in mr_m.items()},
                     "solvers": solver_m,
+                    "replay": replay_m,
                     "build_s": native.build_seconds}))
     log(f"# smoke run: {time.perf_counter() - t_start:.1f} s, kernel builds "
         "included")

@@ -8,7 +8,7 @@ config written for one package reads unchanged in the other
 (`convert.config_from_fields`). `capacity_*` fields size the padded clouds
 and the graph stores. The GPS, IMU, floor and exchange configs are plain
 fields here: their processors and services are not ported yet, and the
-back end refuses a config that enables them (models/backend.py).
+back end and `pipeline.replay.Robot` refuse a config that enables them.
 """
 
 from __future__ import annotations
@@ -16,6 +16,30 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field
 from typing import Tuple
+
+import numpy as np
+
+from .utils.se3np import rpy_to_quat
+
+
+@dataclass(frozen=True)
+class StaticTransformConfig:
+    """lidar2base_publisher section (mrg_slam.yaml:10-22): the static
+    sensor->base_link transform applied during prefiltering."""
+
+    enable_lidar2base_publisher: bool = True
+    x: float = 0.0
+    y: float = 0.0
+    z: float = 0.0
+    roll: float = 0.0
+    pitch: float = 0.0
+    yaw: float = 0.0
+
+    def pose7(self) -> np.ndarray:
+        """The transform as a float32 7-vector [x y z, qw qx qy qz]."""
+        return np.concatenate([np.asarray([self.x, self.y, self.z],
+                                          np.float32),
+                               rpy_to_quat(self.roll, self.pitch, self.yaw)])
 
 
 @dataclass(frozen=True)
@@ -86,6 +110,26 @@ class ScanMatchingOdometryConfig:
     downsample_resolution: float = 0.1
     downsample_min_points_per_voxel: int = 1
     registration: RegistrationConfig = field(default_factory=RegistrationConfig)
+
+
+@dataclass(frozen=True)
+class FloorDetectionConfig:
+    """Mirrors floor_detection_component params (mrg_slam.yaml:113-123).
+
+    Declared so that `EngineConfig` carries the section; floor detection
+    is not ported yet and `pipeline.replay.Robot` refuses it when enabled.
+    """
+
+    enable_floor_detection: bool = False
+    tilt_deg: float = 0.0
+    sensor_height: float = 2.0
+    height_clip_range: float = 1.0
+    floor_pts_thresh: int = 512
+    floor_normal_thresh_deg: float = 10.0
+    enable_normal_filtering: bool = True
+    normal_filter_thresh_deg: float = 20.0
+    ransac_iterations: int = 256
+    ransac_distance_thresh: float = 0.1
 
 
 @dataclass(frozen=True)
@@ -228,3 +272,17 @@ class SlamConfig:
     capacity_keyframes: int = 2048
     capacity_edges: int = 8192
     capacity_keyframe_points: int = 8192  # stored per-keyframe cloud budget
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    """Top-level config bundle for one robot's SLAM stack."""
+
+    model_namespace: str = "atlas"
+    lidar2base: StaticTransformConfig = field(
+        default_factory=StaticTransformConfig)
+    prefilter: PrefilterConfig = field(default_factory=PrefilterConfig)
+    odometry: ScanMatchingOdometryConfig = field(
+        default_factory=ScanMatchingOdometryConfig)
+    floor: FloorDetectionConfig = field(default_factory=FloorDetectionConfig)
+    slam: SlamConfig = field(default_factory=SlamConfig)

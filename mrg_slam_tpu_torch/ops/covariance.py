@@ -1,11 +1,12 @@
-"""Per-point GICP covariances from radius neighbourhoods (small_gicp's
-plane-regularized semantics).
+"""Per-point GICP covariances (small_gicp's plane-regularized semantics).
 
-Counterpart of the radius mode of the JAX package's ops/covariance.py: the
-raw neighbourhood moments come from csrc/radius_stats.cu on the card (the
-plain PyTorch version on the CPU), the covariance from them in closed form,
-and its spectrum is flattened to (eps, 1, 1). The kNN mode waits for top-k
-`knn`, which is not ported yet.
+Counterpart of the JAX package's ops/covariance.py, in its two modes:
+- kNN (small_gicp's own): the covariance of each point's k nearest
+  neighbours in its cloud, self included, from top-k `knn`;
+- radius: the raw neighbourhood moments come from csrc/radius_stats.cu on
+  the card (the plain PyTorch version on the CPU), the covariance from
+  them in closed form.
+Either spectrum is then flattened to (eps, 1, 1).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import stats_kernel
+from . import knn, stats_kernel
 from .cloud import PointCloud
 from .knn import _as_batch, _mask_rows
 from .sym3eig import smallest_eigvec3
@@ -38,6 +39,30 @@ def regularize_covs_plane(covs: torch.Tensor, eps: float = 1e-3
     n the smallest eigenvector (the surface normal)."""
     _, n = smallest_eigvec3(covs)
     return _eye(covs) - (1.0 - eps) * (n[..., :, None] * n[..., None, :])
+
+
+def estimate_covariances(cloud: PointCloud, k: int = 20) -> GICPCloud:
+    """kNN covariance per point, plane-regularized (covariance.py:56-79 of
+    the reference): the mean-centred covariance of the k nearest valid
+    neighbours within the same cloud, self included. Masked points get I.
+    """
+    d2, idx = knn.knn(cloud.points, cloud.points, cloud.mask, k)
+    p, lead = _as_batch(cloud.points)
+    m = _mask_rows(cloud.mask)
+    flat = idx.reshape(p.shape[0], -1)  # (B, N * k)
+    shape = (p.shape[0], p.shape[1], k)
+    neigh = torch.gather(p, 1, flat[..., None].expand(-1, -1, 3)).reshape(
+        shape + (3,))
+    nmask = torch.gather(m, 1, flat).reshape(shape) \
+        & torch.isfinite(d2.reshape(shape))
+    w = nmask.to(p.dtype)[..., None]
+    cnt = torch.clamp(w.sum(-2), min=1.0)  # (B, N, 1)
+    mean = (neigh * w).sum(-2) / cnt
+    diff = (neigh - mean[..., None, :]) * w
+    cov = diff.transpose(-1, -2) @ diff / cnt[..., None]
+    cov = regularize_covs_plane(cov).reshape(lead + cov.shape[-3:])
+    cov = torch.where(cloud.mask[..., None, None], cov, _eye(cov))
+    return GICPCloud(points=cloud.points, mask=cloud.mask, covs=cov)
 
 
 def estimate_covariances_radius(cloud: PointCloud, radius: float = 1.0

@@ -33,7 +33,8 @@ from ..config import RegistrationConfig
 from ..utils import se3
 from . import knn
 from .cloud import PointCloud
-from .covariance import GICPCloud, estimate_covariances_radius, inv3x3
+from .covariance import (GICPCloud, estimate_covariances,
+                         estimate_covariances_radius, inv3x3)
 
 _VOXEL_LATER = ("is not ported yet: the voxel-target family waits for "
                 "ROADMAP.md queue 1 item 11")
@@ -84,9 +85,8 @@ def _covariances(cloud: PointCloud, params: RegistrationConfig) -> GICPCloud:
     if params.reg_covariance_mode == "radius":
         return estimate_covariances_radius(
             cloud, radius=params.reg_covariance_radius)
-    raise NotImplementedError(
-        "kNN covariances (reg_covariance_mode='knn') are not ported yet: "
-        "they wait for top-k knn; use reg_covariance_mode='radius'")
+    return estimate_covariances(cloud,
+                                k=params.reg_correspondence_randomness)
 
 
 def _identity_covs(cloud: PointCloud) -> GICPCloud:

@@ -1,20 +1,178 @@
 """Synthetic workloads of the acceptance runs.
 
-Counterpart of the JAX package's pipeline/baseline_runs.py; only the ring
-pose graph is ported, the workload of the solver section and of
-acceptance row 5 (`5_distributed_mesh_solve`). The acceptance runs
-themselves wait for ROADMAP.md queue 1 items 10 and 16.
+Counterpart of the JAX package's pipeline/baseline_runs.py. The container
+carries no datasets, so the acceptance configurations run on the synthetic
+world, with ground truth for ATE. Ported here:
+
+  1. odometry only (prefilter + GICP), per frame or fused;
+  2. full single-robot graph SLAM (keyframes + loops + optimization),
+     through `replay` or `replay_fused`;
+  7. full SLAM through moving occluders;
+
+and the ring pose graph, the workload of the solver section and of row 5
+(`5_distributed_mesh_solve`). Rows 3, 4 and 6 wait for ROADMAP.md queue 1
+items 12 and 14. Each row runs on the card unless `device` says
+otherwise, and returns the JAX package's keys plus the keyframes.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
+from typing import Dict, Optional
+
 import numpy as np
 import torch
 
-from ..config import OptimizerConfig
+from ..config import (EngineConfig, LoopClosureConfig, OptimizerConfig,
+                      PrefilterConfig, RegistrationConfig,
+                      ScanMatchingOdometryConfig, SlamConfig)
 from ..graph.builder import GraphSLAM
-from ..runtime import DeviceLike
+from ..io.synthetic import SyntheticWorld, circle_trajectory
+from ..models import odometry_fused
+from ..models.odometry import ScanMatchingOdometry
+from ..ops.cloud import PAD_VALUE, PointCloud
+from ..ops.prefilter import prefilter
+from ..runtime import DeviceLike, resolve_device
 from ..utils import se3, se3np
+from ..utils.metrics import ate_rmse, rpe_rmse
+from .replay import Robot, replay, replay_fused
+
+
+def _base_cfg() -> EngineConfig:
+    """The acceptance rows' configuration (baseline_runs.py:30-60 of the
+    JAX package): 8192 raw -> 1024 filtered points, SMALL_GICP with radius
+    covariances, 2 m keyframes, a dense LM. One robot name: the graph
+    exchange is not ported (item 14), and with no other robot on the wire
+    the JAX package's ("atlas", "bestla") gates nothing (backend.py:353)."""
+    reg = RegistrationConfig(reg_transformation_epsilon=1e-3,
+                             reg_maximum_iterations=32,
+                             reg_correspondence_randomness=10,
+                             reg_covariance_radius=1.0)
+    return EngineConfig(
+        prefilter=PrefilterConfig(downsample_resolution=0.4,
+                                  capacity_raw_points=8192,
+                                  capacity_filtered_points=1024,
+                                  outlier_removal_method="NONE"),
+        odometry=ScanMatchingOdometryConfig(keyframe_delta_translation=2.0,
+                                            registration=reg),
+        slam=SlamConfig(multi_robot_names=("atlas",),
+                        keyframe_delta_trans=2.0, capacity_keyframes=128,
+                        capacity_edges=512, capacity_keyframe_points=1024,
+                        registration=reg,
+                        optimizer=OptimizerConfig(
+                            solver_backend="dense",
+                            g2o_solver_num_iterations=64),
+                        # acceptance fitness gated to the correspondence
+                        # radius (the reference's fitness_score_max_range,
+                        # loop_detector.cpp:156), as the JAX package's rows
+                        loop=dataclasses.replace(LoopClosureConfig(),
+                                                 capacity_candidates=4,
+                                                 fitness_score_max_range=2.0),
+                        robot_remove_points_radius=0.0))
+
+
+def _world(seed=21, flat_ground=False, n_dynamic=0) -> SyntheticWorld:
+    return SyntheticWorld.build(seed=seed, extent=35.0, n_ground=30000,
+                                n_pillars=30, n_walls=12,
+                                max_points_per_scan=8192, noise=0.02,
+                                flat_ground=flat_ground,
+                                n_dynamic=n_dynamic)
+
+
+def config1_odometry_only(n_frames=120, fused=False,
+                          cfg: Optional[EngineConfig] = None,
+                          device: DeviceLike = None) -> Dict:
+    """Row 1: prefilter + odometry over one lap and a tenth. Per frame
+    (`ScanMatchingOdometry`), or with `fused` in 24-frame blocks (one
+    prefilter and one `odometry_fused.run_batch` a block). `cfg` defaults
+    to `_base_cfg()`."""
+    dev = resolve_device(device)
+    cfg = cfg or _base_cfg()
+    world = _world()
+    traj = circle_trajectory(n_frames, radius=14.0, laps=1.1)
+    scans = [world.scan(p, seed=i) for i, p in enumerate(traj)]
+    cap = cfg.prefilter.capacity_raw_points
+    if fused:
+        block = 24
+        raw = np.full((n_frames, cap, 3), PAD_VALUE, np.float32)
+        rmask = np.zeros((n_frames, cap), bool)
+        for i, s in enumerate(scans):
+            m = min(len(s), cap)
+            raw[i, :m] = s[:m]
+            rmask[i, :m] = True
+        raw_d = torch.from_numpy(raw).to(dev)
+        rmask_d = torch.from_numpy(rmask).to(dev)
+        stamps = torch.arange(n_frames, dtype=torch.float32,
+                              device=dev) * 0.1
+        carry = odometry_fused.init_carry(
+            cfg.prefilter.capacity_filtered_points, device=dev)
+        est, kfs = [], 0
+        t0 = time.perf_counter()
+        for s in range(0, n_frames, block):
+            out = prefilter(PointCloud(raw_d[s:s + block],
+                                       rmask_d[s:s + block]), cfg.prefilter)
+            carry, outs = odometry_fused.run_batch(
+                cfg.odometry, carry, out.points, out.mask,
+                stamps[s:s + block])
+            est.append(outs.pose.cpu().numpy())
+            kfs += int(outs.is_new_keyframe.sum())
+        wall = time.perf_counter() - t0
+        est = np.concatenate(est)[:n_frames]
+    else:
+        odom = ScanMatchingOdometry(cfg.odometry)
+        est, kfs = [], 0
+        t0 = time.perf_counter()
+        for i, scan in enumerate(scans):
+            pc = prefilter(PointCloud.from_array(scan, capacity=cap,
+                                                 device=dev), cfg.prefilter)
+            out = odom.step(pc, stamp=i * 0.1)
+            est.append(out.pose)
+            kfs += int(out.is_new_keyframe)
+        wall = time.perf_counter() - t0
+        est = np.stack(est)
+    return {"config": "1_odometry_only" + ("_fused" if fused else ""),
+            "ate_rmse": ate_rmse(est[:, :3], traj[:, :3]),
+            "rpe_rmse": rpe_rmse(est[:, :3], traj[:, :3]),
+            "keyframes": kfs, "frames": n_frames,
+            "frames_per_s": n_frames / wall}
+
+
+def _slam_row(name, frames, traj, fused, device) -> Dict:
+    robot = Robot(_base_cfg(), device=device)
+    run = replay_fused if fused else replay
+    res = run(robot, frames, tick_every=20, gt_xyz=traj[:, :3])
+    return {"config": name + ("_fused" if fused else ""),
+            "ate_rmse": res.ate, "rpe_rmse": res.rpe,
+            "loops": res.num_loops,
+            "keyframes": len(res.keyframe_trajectory),
+            "frames": len(frames), "frames_per_s": res.frames_per_s,
+            "keyframe_trajectory": res.keyframe_trajectory}
+
+
+def config2_full_slam(n_frames=120, fused=False,
+                      device: DeviceLike = None) -> Dict:
+    """Row 2: full SLAM over 1.25 laps, a tick every 20 frames, through
+    `replay` or, with `fused`, `replay_fused`. The dict also carries the
+    optimized keyframe poses."""
+    world = _world()
+    traj = circle_trajectory(n_frames, radius=14.0, laps=1.25)
+    frames = [(i * 0.1, world.scan(p, seed=i)) for i, p in enumerate(traj)]
+    return _slam_row("2_full_graph_slam", frames, traj, fused, device)
+
+
+def config7_dynamic_world(n_frames=110, device: DeviceLike = None) -> Dict:
+    """Row 7: full SLAM through 6 moving occluders, which add clusters
+    that do not repeat and shadow the static structure behind them
+    (io/synthetic.py `scan(t=)`); odometry and loop closure must stay
+    accurate though every scan is corrupted."""
+    world = _world(seed=23, n_dynamic=6)
+    traj = circle_trajectory(n_frames, radius=13.0, laps=1.2)
+    frames = [(i * 0.1, world.scan(p, seed=i, t=i * 0.1))
+              for i, p in enumerate(traj)]
+    row = _slam_row("7_dynamic_objects", frames, traj, False, device)
+    row["dynamic_objects"] = 6
+    return row
 
 
 def build_ring_graph(n_nodes=256, capacity_nodes=None, capacity_edges=None,

@@ -1,8 +1,9 @@
-"""Trajectory evaluation: ATE with Umeyama alignment (numpy only).
+"""Trajectory evaluation: ATE with Umeyama alignment, and RPE (numpy only).
 
-The equivalent of the `evo_ape --align` calls the reference uses as its
-acceptance metric (generate_evo_results.sh:22-38); a copy of the JAX
-package's utils/metrics.py, so the port needs nothing of that package.
+The equivalent of the `evo_ape --align` and `evo_rpe` calls the reference
+uses as its acceptance metric (generate_evo_results.sh:22-38); a copy of
+the JAX package's utils/metrics.py, so the port needs nothing of that
+package.
 """
 
 from __future__ import annotations
@@ -49,3 +50,13 @@ def ate_rmse(est_xyz: np.ndarray, gt_xyz: np.ndarray,
         est = est @ (s * R).T + t
     err = est - gt
     return float(np.sqrt((err ** 2).sum(axis=1).mean()))
+
+
+def rpe_rmse(est_xyz: np.ndarray, gt_xyz: np.ndarray, delta: int = 1) -> float:
+    """Relative pose (translation) error RMSE over frame pairs `delta` apart."""
+    est = np.asarray(est_xyz, dtype=np.float64)
+    gt = np.asarray(gt_xyz, dtype=np.float64)
+    de = est[delta:] - est[:-delta]
+    dg = gt[delta:] - gt[:-delta]
+    err = np.linalg.norm(de, axis=1) - np.linalg.norm(dg, axis=1)
+    return float(np.sqrt((err ** 2).mean()))

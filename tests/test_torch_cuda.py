@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card,
-and the paths around them (pair program, ticks, large-graph solvers)
-against the same on the CPU.
+and the paths around them (pair program, ticks, large-graph solvers,
+the per-frame front end's top-k kNN, kNN covariances, STATISTICAL mask,
+deskew and odometry) against the same on the CPU.
 
 Needs a CUDA card (marker `cuda`); without one every test skips. On a
 machine with a card and without JAX (tests/conftest.py imports it):
@@ -556,3 +557,152 @@ def test_chain_marginals_on_the_card_match_the_cpu(dev):
     gpu, cpu = out
     assert np.isfinite(gpu).all() and (gpu[0] == 0).all()
     assert np.abs(gpu - cpu).max() <= 1e-4 * np.abs(cpu).max()
+
+
+# ---------------------------------------------------------------------------
+# the per-frame front end's plain-torch ops (top-k kNN and what uses it,
+# deskew) on the card against the same on the CPU, at the acceptance rows'
+# width (1024 filtered lanes) and bench's (8192 filtered, 131072 raw)
+# ---------------------------------------------------------------------------
+
+def _scan_rows(rng, n):
+    """A voxelized LiDAR-like cloud 5-40 m out (ground, a wall, clutter),
+    its last eighth masked and at PAD_VALUE."""
+    g = np.stack([rng.uniform(5, 40, n // 2), rng.uniform(-15, 15, n // 2),
+                  rng.normal(-1.5, 0.02, n // 2)], 1)
+    w = np.stack([rng.uniform(5, 40, n // 4), 9 + rng.normal(0, 0.02, n // 4),
+                  rng.uniform(-1.5, 2, n // 4)], 1)
+    c = rng.uniform([5, -15, -1.5], [40, 15, 4], (n - n // 2 - n // 4, 3))
+    pts = np.concatenate([g, w, c]).astype(np.float32)
+    mask = np.ones(n, bool)
+    mask[-n // 8:] = False
+    pts[~mask] = 1e6
+    return torch.from_numpy(pts), torch.from_numpy(mask)
+
+
+@pytest.mark.parametrize("n,k", [(1024, 11), (8192, 31)])
+def test_knn_on_the_card_matches_the_cpu(rng, dev, n, k):
+    """Top-k kNN: indices and d2 bitwise (the same elementwise float32
+    ops, unique int64 keys for the top-k), ties to the lowest index."""
+    pts, mask = _scan_rows(rng, n)
+    pts[7] = pts[3]  # a duplicate: a tie at distance 0
+    d_c, i_c = knn.knn(pts, pts, mask, k)
+    d_g, i_g = knn.knn(pts.to(dev), pts.to(dev), mask.to(dev), k)
+    torch.cuda.synchronize()
+    assert torch.equal(i_g.cpu(), i_c)
+    assert torch.equal(d_g.cpu(), d_c)
+    assert i_c[3, 0] == 3 and i_c[3, 1] == 7 and i_c[7, 0] == 3
+
+
+@pytest.mark.parametrize("n", [1024, 8192])
+def test_knn_covariances_and_statistical_mask_on_the_card(rng, dev, n):
+    """kNN covariances against the CPU's, the same neighbours (knn is
+    bitwise) summed in another order: the mean of k terms up to X differs
+    by at most tol_mean = 2 (k - 1) u X between two orders, the covariance
+    of the centred neighbours (up to D from their mean) by tol_cov =
+    2 D tol_mean + 2 (k - 1) u D^2, and the regularized matrix, which
+    turns with the normal, by 12 tol_cov / gap (Davis-Kahan; gap = the two
+    smallest eigenvalues' distance), as tests/test_torch_ops.py bounds the
+    radius covariances. The STATISTICAL mask equal."""
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud
+    from mrg_slam_tpu_torch.ops.covariance import estimate_covariances
+    from mrg_slam_tpu_torch.ops.prefilter import statistical_outlier_mask
+    from mrg_slam_tpu_torch.runtime import pin_numerics
+
+    pin_numerics()
+    k = 10
+    pts, mask = _scan_rows(rng, n)
+    cpu = PointCloud(pts, mask)
+    gpu = PointCloud(pts.to(dev), mask.to(dev))
+    c_c = estimate_covariances(cpu, k=k).covs
+    c_g = estimate_covariances(gpu, k=k).covs.cpu()
+    _, idx = knn.knn(pts, pts, mask, k)
+    nb = pts.double()[idx]
+    cen = nb - nb.mean(1, keepdim=True)
+    ev = torch.linalg.eigvalsh(cen.transpose(1, 2) @ cen / k)
+    gap = (ev[:, 1] - ev[:, 0]).clamp(min=1e-12)
+    x = float(pts[mask].abs().max())
+    d = cen.norm(dim=-1).max(-1).values
+    tol_mean = 2 * (k - 1) * U32 * x
+    tol_cov = 2 * d * tol_mean + 2 * (k - 1) * U32 * d * d
+    diff = (c_g - c_c).abs().amax((1, 2)).double()
+    assert (diff <= (12 * tol_cov / gap).clamp(max=2.0) + 1e-5)[mask].all()
+    assert (diff[mask & (gap > 0.05)] < 1e-3).all()
+    assert torch.equal(c_g[~mask], c_c[~mask])
+    m_c = statistical_outlier_mask(cpu, 30, 1.2)
+    m_g = statistical_outlier_mask(gpu, 30, 1.2).cpu()
+    assert torch.equal(m_g, m_c)
+    assert 0 < (mask & ~m_c).sum() < n // 4
+
+
+@pytest.mark.parametrize("n", [8192, 131072])
+def test_deskew_on_the_card_matches_the_cpu(rng, dev, n):
+    """Deskew at raw coordinates up to 45 m. sin, cos and the 3x3 products
+    round differently on the two devices, a few ulps of each rotation
+    entry, so a point moves by at most 8 u |p|_1 (6e-5 m at 45 m a
+    coordinate); with no angular velocity the points stay bit for bit."""
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud
+    from mrg_slam_tpu_torch.ops.prefilter import deskew
+    from mrg_slam_tpu_torch.runtime import pin_numerics
+
+    pin_numerics()
+    pts = torch.from_numpy(rng.uniform(-45, 45, (n, 3)).astype(np.float32))
+    mask = torch.ones(n, dtype=torch.bool)
+    mask[-100:] = False
+    frac = torch.linspace(0.0, 1.0, n)
+    w = torch.tensor([0.3, -0.2, 1.5])
+    out_c = deskew(PointCloud(pts, mask), frac, w, 0.1)
+    out_g = deskew(PointCloud(pts.to(dev), mask.to(dev)), frac.to(dev),
+                   w.to(dev), 0.1)
+    err = (out_g.points.cpu() - out_c.points).abs().amax(-1)
+    assert (err <= 8 * U32 * pts.abs().sum(-1))[mask].all()
+    assert (out_g.points.cpu()[~mask] == 1e6).all()
+    assert torch.equal(out_g.mask.cpu(), mask)
+    ident = deskew(PointCloud(pts.to(dev), mask.to(dev)), frac.to(dev),
+                   torch.zeros(3, device=dev), 0.1)
+    assert torch.equal(ident.points.cpu()[mask], pts[mask])
+
+
+def test_scan_matching_odometry_on_the_card_matches_the_cpu(dev):
+    """Per-frame odometry over 12 frames of tests/test_torch_scan_odometry
+    .py's world (512 lanes, 1 m a frame) on the card and the CPU: keyframe
+    flags equal and ATE within 1 cm. The moments kernel and its plain
+    version sum in other orders, and the ~1e-4 of float32 noise that
+    leaves in a covariance moves a solve by up to ~1 cm, which the chain
+    carries on (ROADMAP.md §3, "Covariance noise"), so poses are not held
+    one by one."""
+    from mrg_slam_tpu_torch.config import (PrefilterConfig,
+                                           RegistrationConfig,
+                                           ScanMatchingOdometryConfig)
+    from mrg_slam_tpu_torch.io.synthetic import (SyntheticWorld,
+                                                 circle_trajectory)
+    from mrg_slam_tpu_torch.models.odometry import ScanMatchingOdometry
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud
+    from mrg_slam_tpu_torch.ops.prefilter import prefilter
+    from mrg_slam_tpu_torch.utils.metrics import ate_rmse
+
+    w = SyntheticWorld.build(seed=9, extent=30.0, n_ground=20000,
+                             max_points_per_scan=2048, noise=0.01)
+    traj = circle_trajectory(30, radius=12.0, laps=0.4)[:12]
+    pre = PrefilterConfig(downsample_resolution=0.6,
+                          capacity_filtered_points=512,
+                          outlier_removal_method="NONE")
+    clouds = [prefilter(PointCloud.from_array(w.scan(p, seed=i), 2048,
+                                              device="cpu"), pre)
+              for i, p in enumerate(traj)]
+    cfg = ScanMatchingOdometryConfig(
+        keyframe_delta_translation=2.0,
+        registration=RegistrationConfig(reg_transformation_epsilon=1e-3,
+                                        reg_maximum_iterations=32))
+    outs = {}
+    for d in ("cpu", dev):
+        odo = ScanMatchingOdometry(cfg)
+        outs[str(d)] = [odo.step(PointCloud(c.points.to(d), c.mask.to(d)),
+                                 stamp=i * 0.1)
+                        for i, c in enumerate(clouds)]
+    a, b = outs["cpu"], outs[str(dev)]
+    assert [o.is_new_keyframe for o in a] == [o.is_new_keyframe for o in b]
+    assert sum(o.is_new_keyframe for o in a) >= 3
+    ate = [ate_rmse(np.stack([o.pose for o in r])[:, :3], traj[:, :3])
+           for r in (a, b)]
+    assert abs(ate[0] - ate[1]) < 0.01 and max(ate) < 0.1

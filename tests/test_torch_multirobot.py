@@ -146,18 +146,21 @@ def make_robots():
     return np.stack(pts), np.stack(masks), stamps, np.stack([fast, slow])
 
 
+def exact_sqdist(src_chunk, tgt, tgt_mask):
+    """The d2 of the JAX package's Pallas nn kernel, exact coordinate
+    differences (pallas_nn.py:57-72), in place of its CPU path's
+    |s|^2 + |t|^2 - 2 s.t (ROADMAP.md §3 B1)."""
+    d = src_chunk[:, None, :] - tgt[None, :, :]
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
+        + d[..., 2] * d[..., 2]
+    return jnp.where(tgt_mask[None, :], d2, jnp.inf)
+
+
 @pytest.fixture
 def exact_jax_nn(monkeypatch):
-    """The JAX package's CPU nearest neighbour with the d2 of its Pallas
-    kernel, exact coordinate differences (pallas_nn.py:57-72); its jit
-    caches are dropped so that nothing traced before or here outlives the
-    patch."""
-    def exact_sqdist(src_chunk, tgt, tgt_mask):
-        d = src_chunk[:, None, :] - tgt[None, :, :]
-        d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
-            + d[..., 2] * d[..., 2]
-        return jnp.where(tgt_mask[None, :], d2, jnp.inf)
-
+    """The JAX package's CPU nearest neighbours with `exact_sqdist`; its
+    jit caches are dropped so that nothing traced before or here outlives
+    the patch."""
     monkeypatch.setattr(jknn, "_chunk_sqdist", exact_sqdist)
     jax.clear_caches()
     yield

@@ -49,6 +49,8 @@ from mrg_slam_tpu_torch.ops import voxel as tvox
 from mrg_slam_tpu_torch.ops.cloud import PointCloud
 from mrg_slam_tpu_torch.utils import se3 as tse3
 
+from test_torch_multirobot import exact_jax_nn  # noqa: F401 (a fixture)
+
 U32 = 2.0 ** -24
 
 
@@ -220,15 +222,27 @@ def test_prefilter_matches_jax(rng, method):
     np.testing.assert_array_equal(d.mask.numpy(), np.asarray(jd.mask))
 
 
-def test_prefilter_later_stages_raise(rng):
-    pts = PointCloud.from_array(_scan(rng), 2048, device="cpu")
-    _, stat = _pre_cfgs(outlier_removal_method="STATISTICAL")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpre.prefilter(pts, stat)
-    _, desk = _pre_cfgs(enable_deskewing=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpre.prefilter(pts, desk, ang_vel=torch.zeros(3),
-                       point_time_frac=torch.zeros(2048))
+def test_prefilter_later_stages_raise(rng, exact_jax_nn):
+    """The stages that raised before their port, deskewing and STATISTICAL
+    removal, now run inside `prefilter` in the reference's order (deskew
+    first, removal last) and match the JAX package's: equal masks (its
+    kNN with exact differences), points within 1e-5 m at raw coordinates
+    up to 32 m (tests/test_torch_knn.py holds each stage alone)."""
+    pts = _scan(rng)
+    jcfg, tcfg = _pre_cfgs(outlier_removal_method="STATISTICAL",
+                           enable_deskewing=True)
+    frac = np.linspace(0, 1, 2048).astype(np.float32)
+    w = np.asarray([0.0, 0.1, 0.8], np.float32)
+    jc = jpre.prefilter(JCloud.from_array(pts, 2048), jcfg,
+                        ang_vel=jnp.asarray(w),
+                        point_time_frac=jnp.asarray(frac))
+    tc = tpre.prefilter(PointCloud.from_array(pts, 2048, device="cpu"), tcfg,
+                        ang_vel=_t(w), point_time_frac=_t(frac))
+    m = tc.mask.numpy()
+    np.testing.assert_array_equal(m, np.asarray(jc.mask))
+    assert 500 < m.sum() < 1024
+    np.testing.assert_allclose(tc.points.numpy()[m], np.asarray(jc.points)[m],
+                               rtol=0, atol=1e-5)
 
 
 def test_estimate_covariances_radius_matches_jax(rng):
