@@ -63,7 +63,8 @@ drives two paths at full width on bench.py's production world:
   `replay_fused`, row 7 (moving occluders) through `replay`, and row 1
   with kNN covariances and STATISTICAL removal. Per row it prints ATE,
   RPE, loops, keyframes, frames/s, odometry GN iterations and host reads
-  a frame, and the kernels' launches. It fails on an ATE above
+  a frame (with the code lines that make the most), and the kernels'
+  launches. It fails on an ATE above
   max(ref + 0.05 m, 1.2 ref), keyframes more than 2 from ref's, a SLAM
   row without a loop or more than max(2, 0.2 ref) loops from ref's (ref:
   the JAX package on the same frames on the CPU,
@@ -71,7 +72,23 @@ drives two paths at full width on bench.py's production world:
   keyframes from its per-frame row, or row 2 run again giving keyframe
   poses that differ by a bit. nn (bitwise) and moments are then held to
   their plain versions and timed at this path's shape, one frame of 1024
-  lanes.
+  lanes;
+- acceptance row 3 (`3_floor_augmented`) at its own width through
+  `baseline_runs.config3_floor_augmented`: floor detection (normals, plane
+  RANSAC on the card, triplets from a torch.Generator there) on every
+  filtered scan and the floor processor's plane edges. It prints ATE,
+  loops, keyframes, plane edges, frames/s, floor detection ms a call,
+  detections accepted, host reads a frame and a floor detection call, and
+  the kernels' launches, and fails on an ATE above max(ref + 0.05 m,
+  1.2 ref), keyframes more than 2 or loops more than 2 from ref's, no
+  loop, plane edges more than max(3, 0.1 ref) from ref's (ref: the JAX
+  package on the CPU, `tools/floor_reference.py`), or a floor detection
+  call that reads the card other than once; then
+  `family_graph_spec(256)`, every prior and plane family on one ring,
+  solved by the dense, cg and chain backends (40 LM iterations, chi2
+  held to the JAX package's and dense against chain within 1e-3, each
+  timed), and its marginals with the plane pool held to the float64
+  inverse of each path's own system.
 
 Any failed check raises. The last line of standard output is {"ok": true,
 "device": {...}}; the line before it lists every kernel with its
@@ -136,6 +153,20 @@ REF_REPLAY = {
     "1_odometry_only_knn_statistical": dict(ate_m=0.038195636673024086,
                                             rpe_m=0.019746068085211396,
                                             keyframes=40)}
+# acceptance row 3 (`3_floor_augmented`) at its own width, not cut:
+# `_base_cfg()` with floor detection and the floor processor, the
+# flat-ground world of seed 21, 100 frames, a tick every 20. The JAX
+# package's run of the same frames on the CPU (`python
+# tools/floor_reference.py`, 95 s with the family solves below); its
+# triplets come from jax.random, the port's from a torch.Generator
+REF_FLOOR = dict(ate_m=0.23544667759555968, rpe_m=0.040798407275734,
+                 loops=3, keyframes=34, plane_edges=34, detections=100)
+# the prior and plane families on one ring, family_graph_spec(256, seed 0),
+# 40 LM iterations: the JAX package's chi2 after the dense, cg and chain
+# solves on the CPU (`python tools/floor_reference.py`)
+FAMILY_NODES, FAMILY_ITERS = 256, 40
+REF_FAMILY = dict(dense=425.98223876953125, cg=425.9820556640625,
+                  chain=425.9826354980469)
 # bench.py's multi-robot section (run_multirobot_scaling, bench.py:277-475)
 # at its own width: build_world_and_scans(n_frames=160, laps=1.0)
 # (bench.py:71-81; 32768 raw points a scan, 4096 filtered), a fixed
@@ -932,11 +963,48 @@ def knn_statistical_cfg(bl):
             slam.registration, reg_covariance_mode="knn")))
 
 
-def replay_row(torch, name, run):
+class SyncReads:
+    """The synchronizing CUDA calls made while it is entered, as
+    `torch.cuda.set_sync_debug_mode("warn")` reports them (each costs a
+    Python warning, a few us): `count()` of them so far, and `top(k)`,
+    the k code lines that made the most, as "file:line"."""
+
+    def __init__(self, torch):
+        self.torch, self.seen = torch, []
+
+    def __enter__(self):
+        self._catch = warnings.catch_warnings(record=True)
+        self.seen = self._catch.__enter__()
+        warnings.simplefilter("always")
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+
+    def _reads(self):
+        # the mode's own one-time notice also speaks of synchronizing
+        return [w for w in self.seen
+                if "called a synchronizing CUDA operation" in str(w.message)]
+
+    def count(self):
+        return len(self._reads())
+
+    def top(self, k=8):
+        import collections
+
+        where = collections.Counter(
+            f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            for w in self._reads())
+        return where.most_common(k)
+
+
+def replay_row(torch, name, run, ref=None, sync=None):
     """One acceptance row through the port's entry point, the kernels'
-    counts from 0 just before it: -> its metrics. The host reads are the
-    synchronizing CUDA calls `torch.cuda.set_sync_debug_mode("warn")`
-    reports while the row runs (each costs a Python warning, a few us)."""
+    counts from 0 just before it: -> its metrics. The host reads are those
+    `sync` (a SyncReads, a new one by default) sees while the row runs,
+    with the code lines that made the most."""
     from mrg_slam_tpu_torch.ops import nn_kernel, stats_kernel
     from mrg_slam_tpu_torch.ops import registration as reg
 
@@ -944,23 +1012,20 @@ def replay_row(torch, name, run):
                 stats_kernel.count_cuda)
     for fn in counters:
         fn.launches = 0
-    with GnCounter(reg) as gn, warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            r = run()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    reads = sum(1 for w in seen if "synchroniz" in str(w.message))
+    sync = sync or SyncReads(torch)
+    with GnCounter(reg) as gn, sync:
+        r = run()
+    reads = sync.count()
     n = r["frames"]
     m = dict(ate_m=r["ate_rmse"], rpe_m=r["rpe_rmse"], loops=r.get("loops"),
              keyframes=r["keyframes"], frames=n,
              frames_per_s=r["frames_per_s"],
              gn_iterations_per_frame=gn.iterations / n,
              host_reads_per_frame=reads / n,
+             host_read_sources=[[w, c / n] for w, c in sync.top()],
              launches=dict(zip(("nn", "moments", "count"),
                                (fn.launches for fn in counters))),
-             ref=REF_REPLAY[name])
+             ref=ref or REF_REPLAY[name])
     log(f"# {name}: ATE {m['ate_m']:.4f} m (JAX CPU "
         f"{m['ref']['ate_m']:.4f}), RPE {m['rpe_m']:.4f} m, loops "
         f"{m['loops']}, keyframes {m['keyframes']} (JAX CPU "
@@ -968,7 +1033,8 @@ def replay_row(torch, name, run):
         f"{m['frames_per_s']:.2f} frames/s over {n} frames; GN iterations "
         f"{m['gn_iterations_per_frame']:.2f} and host reads "
         f"{m['host_reads_per_frame']:.2f} a frame; launches "
-        f"{m['launches']}")
+        f"{m['launches']}; reads a frame by line: "
+        + ", ".join(f"{w} {c:.2f}" for w, c in m["host_read_sources"]))
     return m, r
 
 
@@ -1176,6 +1242,186 @@ def replay_phase(torch):
     phase_s = time.perf_counter() - t0
     log(f"# replay phase: {phase_s:.1f} s")
     return dict(rows=out, profile=prof, phase_s=phase_s), rows
+
+
+# ---------------------------------------------------------------------------
+# acceptance row 3 and the prior and plane families
+# ---------------------------------------------------------------------------
+
+class FloorCalls:
+    """Installed over `FloorDetection.detect` for one run: the wall of
+    each call (it ends on its one packed host read, so the wall is the
+    whole call), the host reads each call made as `sync` (a SyncReads,
+    entered around the run) sees them, the accepted detections, and that
+    every call got a cloud on the card. Passes every call on."""
+
+    def __init__(self, cls, sync):
+        self.cls, self.fn, self.sync = cls, cls.detect, sync
+        self.ms, self.reads, self.accepted = [], [], 0
+
+    def __enter__(self):
+        calls = self
+
+        def detect(det, cloud, stamp=0.0):
+            if not cloud.points.is_cuda:
+                raise AssertionError("floor detection got a CPU cloud")
+            n0 = calls.sync.count()
+            t0 = time.perf_counter()
+            out = calls.fn(det, cloud, stamp)
+            calls.ms.append((time.perf_counter() - t0) * 1e3)
+            calls.reads.append(calls.sync.count() - n0)
+            calls.accepted += out is not None
+            return out
+
+        self.cls.detect = detect
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.detect = self.fn
+
+
+def floor_row(torch):
+    """Row 3 through `baseline_runs.config3_floor_augmented` on the card,
+    the kernels' counts from 0 just before it -> its metrics, checked:
+    ATE within max(ref + 0.05 m, 1.2 ref) of the JAX package's, keyframes
+    within 2, loops at least one and within 2, plane edges within
+    max(3, 0.1 ref), and one host read in every floor detection call."""
+    from mrg_slam_tpu_torch.models.floor_detection import FloorDetection
+    from mrg_slam_tpu_torch.pipeline import baseline_runs as bl
+
+    sync = SyncReads(torch)
+    with FloorCalls(FloorDetection, sync) as calls:
+        m, r = replay_row(torch, "3_floor_augmented",
+                          bl.config3_floor_augmented, REF_FLOOR, sync)
+    m.update(plane_edges=r["plane_edges"], detections=calls.accepted,
+             detect_calls=len(calls.ms),
+             detect_ms_median=float(np.median(calls.ms)),
+             detect_ms_max=float(np.max(calls.ms)),
+             detect_reads_max=int(np.max(calls.reads)),
+             detect_reads_min=int(np.min(calls.reads)))
+    log(f"# 3_floor_augmented: {m['plane_edges']} plane edges (JAX CPU "
+        f"{REF_FLOOR['plane_edges']}), {m['detections']} of "
+        f"{m['detect_calls']} floor detections accepted (JAX CPU "
+        f"{REF_FLOOR['detections']}), floor detection "
+        f"{m['detect_ms_median']:.2f} ms a call (median; max "
+        f"{m['detect_ms_max']:.2f}), {m['detect_reads_min']} to "
+        f"{m['detect_reads_max']} host reads a call")
+    ref = REF_FLOOR
+    lim = max(ref["ate_m"] + 0.05, 1.2 * ref["ate_m"])
+    checks = ((m["ate_m"] <= lim, f"ATE {m['ate_m']:.4f} m > {lim:.4f}"),
+              (abs(m["keyframes"] - ref["keyframes"]) <= 2,
+               f"{m['keyframes']} keyframes, JAX CPU {ref['keyframes']}"),
+              (m["loops"] >= 1 and abs(m["loops"] - ref["loops"]) <= 2,
+               f"{m['loops']} loops, JAX CPU {ref['loops']}"),
+              (abs(m["plane_edges"] - ref["plane_edges"])
+               <= max(3, 0.1 * ref["plane_edges"]),
+               f"{m['plane_edges']} plane edges, JAX CPU "
+               f"{ref['plane_edges']}"),
+              (m["launches"]["nn"] > 0 and m["launches"]["moments"] > 0,
+               f"a kernel never launched: {m['launches']}"),
+              (m["detect_reads_min"] == m["detect_reads_max"] == 1,
+               f"floor detection made {m['detect_reads_min']} to "
+               f"{m['detect_reads_max']} host reads a call, not one"))
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"3_floor_augmented: {what}")
+    return m
+
+
+def exact_marginals64_planes(torch, g, ridge):
+    """The diagonal 6x6 node blocks of (H + ridge I)^-1 over the free
+    dofs, planes' included, with H assembled (graph/solve.assemble_dense)
+    and inverted in float64 from the float32 linearization."""
+    from mrg_slam_tpu_torch.graph import solve
+
+    lin = solve.linearize(g)
+    lin = solve.LinearizedGraph(*(a if a is None else a.double()
+                                  for a in lin))
+    H, _, free = solve.assemble_dense(g._replace(poses=g.poses.double()),
+                                      lin)
+    idx = torch.nonzero(free.bool())[:, 0]
+    inv = torch.zeros_like(H)
+    inv[idx[:, None], idx[None, :]] = torch.linalg.inv(
+        H[idx][:, idx] + ridge * torch.eye(len(idx), dtype=H.dtype,
+                                           device=H.device))
+    n = g.n_nodes
+    return inv[:6 * n, :6 * n].view(n, 6, n, 6).diagonal(
+        dim1=0, dim2=2).permute(2, 0, 1).cpu().numpy()
+
+
+def family_check(torch, dev):
+    """`family_graph_spec(256, seed 0)`: every prior and plane family on
+    one ring, solved by the dense, cg and chain backends with 40 LM
+    iterations each (timed as the solver section: a warm call, then the
+    median of SOLVER_REPS on perturbed poses), chi2 held to the JAX
+    package's within 1e-3 and dense against chain; then the marginals of
+    the dense-solved graph, each path against the float64 inverse of its
+    own system (ROADMAP.md §3 B6): dense (H + 1e-9 I) within MARGINAL_TOL
+    of the largest entry, cg (H + 1e-6 I) under the JAX package's bar,
+    chain (H + 1e-6 I) within MARGINAL_TOL of the largest entry."""
+    from mrg_slam_tpu_torch.config import OptimizerConfig
+    from mrg_slam_tpu_torch.graph import chain_solver, solve
+    from mrg_slam_tpu_torch.graph.builder import GraphSLAM
+    from mrg_slam_tpu_torch.pipeline import baseline_runs as bl
+
+    spec = bl.family_graph_spec(FAMILY_NODES, 0)
+    out, solved = {}, {}
+    for backend in ("dense", "cg", "chain"):
+        gs = bl.fill_family_graph(GraphSLAM(
+            OptimizerConfig(solver_backend=backend), device=dev,
+            **bl.family_graph_capacities(spec)), spec)
+        g = gs.snapshot()
+        if not (g.planes.is_cuda and g.priors.mask.is_cuda):
+            raise AssertionError("family graph not on the card")
+        out[backend], res = timed_solve(torch, g, backend, FAMILY_ITERS,
+                                        f"family graph {backend}")
+        out[backend]["chi2_rel_ref"] = check_chi2(
+            f"family {backend}", out[backend]["chi2_final"],
+            REF_FAMILY[backend], "the JAX package's")
+        solved[backend] = g._replace(poses=res.poses, planes=res.planes)
+    out["chain_dense_chi2_rel"] = check_chi2(
+        "family chain vs dense", out["chain"]["chi2_final"],
+        out["dense"]["chi2_final"], "dense's")
+    g = solved["dense"]
+    n = g.n_nodes
+    want9 = exact_marginals64_planes(torch, g, 1e-9)
+    want6 = exact_marginals64_planes(torch, g, CG_RIDGE)
+    got = dict(
+        dense=solve.marginals(g, exact=True).cpu().numpy(),
+        cg=solve.marginals_selected(g, torch.arange(n, device=dev)
+                                    ).cpu().numpy(),
+        chain=chain_solver.chain_marginals(g, solve.chain_aux_for(g),
+                                           solve._chain_K(n)).cpu().numpy())
+    for name, cov in got.items():
+        want = want9 if name == "dense" else want6
+        scale = float(np.abs(want).max())
+        err = float(np.abs(cov - want).max())
+        if name == "cg":
+            bad = int((np.abs(cov - want)
+                       > CG_MARG_ATOL + CG_MARG_RTOL * np.abs(want)).sum())
+            bar = f"rtol {CG_MARG_RTOL} + atol {CG_MARG_ATOL}"
+        else:
+            bad = int(err > MARGINAL_TOL * scale)
+            bar = f"{MARGINAL_TOL} of the largest entry"
+        out[f"marginals_{name}"] = dict(max_abs_err=err, largest=scale,
+                                        outside=bad)
+        log(f"# family graph {name} marginals ({n} nodes, "
+            f"{g.n_planes} planes) against the float64 inverse of "
+            f"H + {1e-9 if name == 'dense' else CG_RIDGE} I: max |diff| "
+            f"{err:.3e} of {scale:.3e}, {bad} outside {bar}")
+        if not np.isfinite(cov).all() or bad:
+            raise AssertionError(f"family graph: {name} marginals off the "
+                                 "float64 inverse")
+    return out
+
+
+def floor_phase(torch, dev):
+    """Row 3 at its width, then the prior and plane solver check."""
+    t0 = time.perf_counter()
+    out = dict(row3=floor_row(torch), family=family_check(torch, dev))
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"# floor phase: {out['phase_s']:.1f} s")
+    return out
 
 
 class FrontEndInputs(NamedTuple):
@@ -2240,6 +2486,7 @@ def main():
     solver_m = solver_phase(torch, dev, slam_run.slam.db.graph)
     replay_m, frame_rows = replay_phase(torch)
     rows.extend(frame_rows)
+    floor_m = floor_phase(torch, dev)
     log(json.dumps({"frames_per_s": fps,
                     "pass1_frames_per_s": FRAMES / sum(run1.block_walls),
                     "ate_m": ate, "ref_ate_m": REF_ATE_M,
@@ -2250,6 +2497,7 @@ def main():
                     "multi_robot": {str(R): v for R, v in mr_m.items()},
                     "solvers": solver_m,
                     "replay": replay_m,
+                    "floor": floor_m,
                     "build_s": native.build_seconds}))
     log(f"# smoke run: {time.perf_counter() - t_start:.1f} s, kernel builds "
         "included")

@@ -9,14 +9,17 @@ between them, built on how a SLAM Hessian is laid out:
   H + damping = T + U U^T
 
 - T, block-tridiagonal: the odometry-chain SE3 edges (|from - to| = 1
-  under the builder's insertion-ordered node ids) and the LM damping.
+  under the builder's insertion-ordered node ids), the unary priors, the
+  plane block-diagonal (plane priors) and the LM damping.
   Nodes are cut into S segments of K; each segment's dense (6(K-1))^2
   interior is Cholesky-factored in one batched call, the interiors are
   eliminated onto the S separator nodes (each segment's last), and the
   6S x 6S reduced system is factored densely.
-- U U^T: every other edge (loop closures, inter-robot edges) enters as an
-  exact low-rank correction, 6 columns per coupling edge (U = J^T W^1/2
-  rows at its two ends), solved by the Woodbury identity
+- U U^T: every other edge (loop closures, inter-robot edges, SE3-plane
+  couplings, plane-plane constraints) enters as an exact low-rank
+  correction, 6 columns per coupling edge (U = J^T W^1/2 rows at its two
+  ends, a plane family's zero-padded to width 6), solved by the Woodbury
+  identity
       x = y - Y_U (I + U^T Y_U)^-1 U^T y,   y = T^-1 b,  Y_U = T^-1 U.
   The number of coupling slots is a bucket chosen on the host (`_bucket`).
 
@@ -27,11 +30,9 @@ against the damped Hessian. Y_U and the LU factors of I + U^T Y_U are
 formed once a step and serve both the solve and the refinement pass (the
 JAX package solves T for [b, U] twice; the columns are the same).
 
-Only the SE3-SE3 family is ported. The unary priors' blocks belong on T's
-diagonal (`_chain_T`) and the SE3-plane and plane-plane edges' columns in
-U (`_coupling_U`); they stay refused by solve.check_families until
-ROADMAP.md queue 1 item 12. A factorization that fails is reported through
-the `ok` flags, and the callers raise: no solve quietly becomes another.
+Vectors come in pairs (node stack (N, 6, k), plane stack (P, 3, k)). A
+factorization that fails is reported through the `ok` flags, and the
+callers raise: no solve quietly becomes another.
 """
 
 from __future__ import annotations
@@ -116,15 +117,27 @@ class ChainFactors(NamedTuple):
     E: torch.Tensor      # (S, mi, 12) interior -> [left, right] separators
     F: torch.Tensor      # (S, mi, 12) A^-1 E
     cholR: torch.Tensor  # (6S, 6S) reduced separator Cholesky
+    Tp_inv: torch.Tensor  # (P, 3, 3) inverses of the plane blocks
     ok: torch.Tensor     # () every factorization succeeded
 
 
-def _chain_T(g, lin, lam, d_n, free_n):
-    """Block-tridiagonal T, damped and projected -> (Td (N, 6, 6), Toff
-    (N, 6, 6)) with Toff[i] = T[i, i+1] and Toff[N-1] = 0."""
-    n = g.n_nodes
-    Td = g.poses.new_zeros((n, 6, 6))
-    Toff = g.poses.new_zeros((n, 6, 6))
+def _damped(T: torch.Tensor, lam, d: torch.Tensor,
+            free: torch.Tensor) -> torch.Tensor:
+    """Diagonal blocks (K, k, k) damped by lam diag(H) + 1e-6 (as
+    dense_delta) and projected: fixed and invalid members get I."""
+    eye = torch.eye(T.shape[-1], dtype=T.dtype, device=T.device)
+    return (T * (free[:, :, None] * free[:, None, :])
+            + eye * (1.0 - free[:, 0, None, None])
+            + torch.diag_embed((lam * d + 1e-6) * free[:, 0:1]))
+
+
+def _chain_T(g, lin, lam, d, free):
+    """Block-tridiagonal T and the plane block-diagonal, damped and
+    projected -> (Td (N, 6, 6), Toff (N, 6, 6) with Toff[i] = T[i, i+1]
+    and Toff[N-1] = 0, Tp (P, 3, 3)). `d` and `free` are per pool."""
+    n, p = g.n_nodes, g.n_planes
+    Td = lin.W_se3.new_zeros((n, 6, 6))
+    Toff = lin.W_se3.new_zeros((n, 6, 6))
     if lin.r_se3.shape[0]:
         f, t = g.se3.from_idx.long(), g.se3.to_idx.long()
         chain = g.se3.mask & ((f - t).abs() == 1)
@@ -135,25 +148,28 @@ def _chain_T(g, lin, lam, d_n, free_n):
         # the off-diagonal block H[lo, hi] = J_lo^T W J_hi, at slot lo
         Hlh = torch.where((f < t)[:, None, None], JiT @ WJj, JjT @ WJi)
         Toff = S._segment_sum(Hlh, torch.minimum(f, t), n)
-    # (the unary priors' J^T W J blocks add to Td here: item 12)
-
-    # damping (lam diag(H) + 1e-6, as dense_delta) and projection
-    damp = (lam * d_n + 1e-6) * free_n[:, 0:1]
-    eye = torch.eye(6, dtype=Td.dtype, device=Td.device)
-    Td = (Td * (free_n[:, :, None] * free_n[:, None, :])
-          + eye * (1.0 - free_n[:, 0, None, None])
-          + torch.diag_embed(damp))
-    both_free = free_n[:-1, 0] * free_n[1:, 0]
+    if lin.r_pr is not None:
+        Td = Td + S._segment_sum(lin.Jp.transpose(1, 2) @ lin.W_pr @ lin.Jp,
+                                 g.priors.node_idx.long(), n)
+    Td = _damped(Td, lam, d[0], free[0])
+    both_free = free[0][:-1, 0] * free[0][1:, 0]
     Toff = torch.cat([Toff[:-1] * both_free[:, None, None],
                       torch.zeros_like(Toff[-1:])])
-    return Td, Toff
+    Tp = Td.new_zeros((p, 3, 3))
+    if p:
+        if lin.r_pp is not None:
+            Tp = S._segment_sum(lin.Jpp.transpose(1, 2) @ lin.W_pp @ lin.Jpp,
+                                g.plane_priors.plane_idx.long(), p)
+        Tp = _damped(Tp, lam, d[1], free[1])
+    return Td, Toff, Tp
 
 
-def _factor_T(Td: torch.Tensor, Toff: torch.Tensor, K: int) -> ChainFactors:
+def _factor_T(Td: torch.Tensor, Toff: torch.Tensor, Tp: torch.Tensor,
+              K: int) -> ChainFactors:
     """Two-level factorization of block-tridiagonal T: segments of K
     nodes, interiors their first K-1 nodes, separators their last;
     batched interior Cholesky, Schur complement onto the separators,
-    dense reduced Cholesky."""
+    dense reduced Cholesky. The plane blocks are inverted."""
     n = Td.shape[0]
     if n % K:
         raise ValueError(f"node capacity {n} is not a multiple of K={K}")
@@ -195,11 +211,15 @@ def _factor_T(Td: torch.Tensor, Toff: torch.Tensor, K: int) -> ChainFactors:
     cholR, info_r = torch.linalg.cholesky_ex(
         R.permute(0, 2, 1, 3).reshape(6 * Sg, 6 * Sg))
     ok = (info_a == 0).all() & (info_r == 0)
-    return ChainFactors(cholA=cholA, E=E, F=F, cholR=cholR, ok=ok)
+    Tp_inv = S._inv_sym(Tp, 0.0) if Tp.shape[0] else Tp
+    return ChainFactors(cholA=cholA, E=E, F=F, cholR=cholR, Tp_inv=Tp_inv,
+                        ok=ok)
 
 
-def _solve_T(fac: ChainFactors, b: torch.Tensor, K: int) -> torch.Tensor:
-    """T^-1 applied to stacked right-hand sides b (N, 6, k)."""
+def _solve_T(fac: ChainFactors, b: torch.Tensor, K: int,
+             b_p: torch.Tensor):
+    """T^-1 applied to stacked right-hand sides b (N, 6, k) and b_p
+    (P, 3, k) -> (x (N, 6, k), x_p (P, 3, k))."""
     n, _, k = b.shape
     Sg, mi = n // K, 6 * (K - 1)
     bv = b.reshape(Sg, K, 6, k)
@@ -214,115 +234,159 @@ def _solve_T(fac: ChainFactors, b: torch.Tensor, K: int) -> torch.Tensor:
     x_lr = torch.cat([torch.cat([torch.zeros_like(x_sep[:1]), x_sep[:-1]]),
                       x_sep], dim=1)                 # (S, 12, k)
     x_int = (y - fac.F @ x_lr).view(Sg, K - 1, 6, k)
-    return torch.cat([x_int, x_sep[:, None]], dim=1).reshape(n, 6, k)
+    x = torch.cat([x_int, x_sep[:, None]], dim=1).reshape(n, 6, k)
+    return x, (fac.Tp_inv @ b_p if b_p.shape[0] else b_p)
 
 
-# one coupling family's columns: (kind, idx_a, U_a (m, 6, 6), idx_b, U_b)
-Parts = List[Tuple[str, torch.Tensor, torch.Tensor, torch.Tensor,
+# one coupling family's columns: (pool_a, idx_a, U_a (m, d_a, 6), pool_b,
+# idx_b, U_b), pool 0 the nodes (d = 6), pool 1 the planes (d = 3)
+Parts = List[Tuple[int, torch.Tensor, torch.Tensor, int, torch.Tensor,
                    torch.Tensor]]
 
 
-def _coupling_U(g, lin, aux: ChainAux, free_n, sc_n) -> Tuple[Parts,
-                                                               torch.Tensor]:
-    """The Woodbury columns, kept factored by edge end and scaled like b:
-    coupling edge c gives a 6-wide column block with rows U_from[c] =
-    J_from^T W^1/2 at its 'from' node and U_to[c] at 'to'. A padding slot
-    (-1) factors the ridge of a zero W, as in the JAX package. -> (parts,
-    ok)."""
+def _coupling_U(g, lin, aux: ChainAux, free, sc) -> Tuple[Parts,
+                                                          torch.Tensor]:
+    """The Woodbury columns, kept factored by edge end and scaled like b
+    (`free`, `sc` per pool): coupling edge c gives a 6-wide column block
+    with rows U_a[c] = J_a^T W^1/2 at one end and U_b[c] at the other; a
+    plane family's W^1/2 (3 or 4 rows) is zero-padded to 6 columns. A
+    padding slot (-1) factors the ridge of a zero W, as in the JAX
+    package. -> (parts, ok)."""
     parts: Parts = []
     ok = torch.ones((), dtype=torch.bool, device=g.poses.device)
+    fams = []
     if lin.r_se3.shape[0] and aux.se3_cidx.shape[0]:
-        e = torch.clamp(aux.se3_cidx, min=0)
-        valid = (aux.se3_cidx >= 0) & g.se3.mask[e]
-        Wh, ok = _sym_sqrt(lin.W_se3[e] * valid[:, None, None])
-        f, t = g.se3.from_idx[e].long(), g.se3.to_idx[e].long()
-        Uf = lin.Ji[e].transpose(1, 2) @ Wh * (free_n[f] * sc_n[f])[..., None]
-        Ut = lin.Jj[e].transpose(1, 2) @ Wh * (free_n[t] * sc_n[t])[..., None]
-        parts.append(("nn", f, Uf, t, Ut))
-    # (the SE3-plane and plane-plane families add their "np" and "pp"
-    # column blocks here: item 12)
+        t = g.se3
+        fams.append((aux.se3_cidx, t.mask, lin.W_se3,
+                     (0, t.from_idx, lin.Ji), (0, t.to_idx, lin.Jj)))
+    if lin.r_pl is not None and aux.pl_cidx.shape[0]:
+        t = g.plane_edges
+        fams.append((aux.pl_cidx, t.mask, lin.W_pl,
+                     (0, t.node_idx, lin.Jpl_pose),
+                     (1, t.plane_idx, lin.Jpl_plane)))
+    if lin.r_qq is not None and aux.qq_cidx.shape[0]:
+        t = g.plane_plane
+        fams.append((aux.qq_cidx, t.mask, lin.W_qq,
+                     (1, t.from_idx, lin.Jqq_a), (1, t.to_idx, lin.Jqq_b)))
+    for cidx, mask, W, (pa, ia, Ja), (pb, ib, Jb) in fams:
+        e = torch.clamp(cidx, min=0)
+        valid = (cidx >= 0) & mask[e]
+        Wh, ok_w = _sym_sqrt(W[e] * valid[:, None, None])
+        ok = ok & ok_w
+        if Wh.shape[-1] < 6:
+            Wh = torch.nn.functional.pad(Wh, (0, 6 - Wh.shape[-1]))
+        ia, ib = ia[e].long(), ib[e].long()
+        Ua = (Ja[e].transpose(1, 2) @ Wh
+              * (free[pa][ia] * sc[pa][ia])[..., None])
+        Ub = (Jb[e].transpose(1, 2) @ Wh
+              * (free[pb][ib] * sc[pb][ib])[..., None])
+        parts.append((pa, ia, Ua, pb, ib, Ub))
     return parts, ok
 
 
-def _U_dense(parts: Parts, n: int, mtot: int,
-             like: torch.Tensor) -> torch.Tensor:
-    """U as right-hand sides: (N, 6, 6m) node rows."""
-    U = like.new_zeros((n, 6, 6 * mtot))
-    rows = torch.arange(6, device=like.device)[None, :, None]
+def _U_dense(parts: Parts, sizes, mtot: int, like: torch.Tensor):
+    """U as right-hand sides: [(N, 6, 6m) node rows, (P, 3, 6m) plane
+    rows]."""
+    U = [like.new_zeros((k, d, 6 * mtot)) for k, d in zip(sizes, (6, 3))]
     off = 0
-    for _, ia, Ua, ib, Ub in parts:
+    for pa, ia, Ua, pb, ib, Ub in parts:
         m = Ua.shape[0]
         cols = (off * 6 + torch.arange(6 * m, device=like.device)
                 ).view(m, 1, 6)
-        U.index_put_((ia[:, None, None], rows, cols), Ua, accumulate=True)
-        U.index_put_((ib[:, None, None], rows, cols), Ub, accumulate=True)
+        for pool, i, Ui in ((pa, ia, Ua), (pb, ib, Ub)):
+            rows = torch.arange(Ui.shape[1], device=like.device)[None, :,
+                                                                 None]
+            U[pool].index_put_((i[:, None, None], rows, cols), Ui,
+                               accumulate=True)
         off += m
     return U
 
 
-def _Ut_dot(parts: Parts, Y: torch.Tensor) -> torch.Tensor:
-    """U^T Y from U's two-ends sparsity; Y (N, 6, k) -> (6m, k)."""
+def _Ut_dot(parts: Parts, Y) -> torch.Tensor:
+    """U^T Y from U's two-ends sparsity; Y = (node stack (N, 6, k), plane
+    stack (P, 3, k)) -> (6m, k)."""
     outs = []
-    for _, ia, Ua, ib, Ub in parts:
-        o = Ua.transpose(1, 2) @ Y[ia] + Ub.transpose(1, 2) @ Y[ib]
-        outs.append(o.reshape(-1, Y.shape[-1]))
+    for pa, ia, Ua, pb, ib, Ub in parts:
+        o = Ua.transpose(1, 2) @ Y[pa][ia] + Ub.transpose(1, 2) @ Y[pb][ib]
+        outs.append(o.reshape(-1, o.shape[-1]))
     return torch.cat(outs, dim=0)
 
 
-def _scales(d_n, free_n, lam):
+def _scales(d, free, lam):
     """Symmetric Jacobi equilibration in the damped metric (dense_delta's
     rescale: float32 Cholesky of a raw SLAM Hessian stalls LM)."""
-    sc = torch.rsqrt(torch.clamp((1 + lam) * d_n + 1e-6, min=1e-12)) * free_n
-    return torch.where(free_n > 0, sc, torch.ones_like(sc))
+    sc = torch.rsqrt(torch.clamp((1 + lam) * d + 1e-6, min=1e-12)) * free
+    return torch.where(free > 0, sc, torch.ones_like(sc))
 
 
-def _scaled_T(g, lin, lam, d_n, free_n, sc, K) -> ChainFactors:
-    Td, Toff = _chain_T(g, lin, lam, d_n, free_n)
-    Td = Td * sc[:, :, None] * sc[:, None, :]
-    Toff = Toff * sc[:, :, None] * torch.roll(sc, -1, 0)[:, None, :]
-    return _factor_T(Td, Toff, K)
+def _scaled_T(g, lin, lam, d, free, sc, K) -> ChainFactors:
+    Td, Toff, Tp = _chain_T(g, lin, lam, d, free)
+    Td = Td * sc[0][:, :, None] * sc[0][:, None, :]
+    Toff = Toff * sc[0][:, :, None] * torch.roll(sc[0], -1, 0)[:, None, :]
+    Tp = Tp * sc[1][:, :, None] * sc[1][:, None, :]
+    return _factor_T(Td, Toff, Tp, K)
+
+
+def _pool_terms(g, lin, lam):
+    """Per pool: the free masks, the diagonals of H and the scales."""
+    free = S._free_masks(g)
+    d = [torch.diagonal(x, dim1=-2, dim2=-1)
+         for x in S.block_diagonal(g, lin)]
+    return free, d, [_scales(di, fi, lam) for di, fi in zip(d, free)]
 
 
 def chain_delta(g, lin, lam, aux: ChainAux, K: int):
     """Exact damped Newton step by T + U U^T Woodbury: dense_delta's
-    counterpart in the LM -> (dx (N, 6), predicted chi2 reduction, ok)."""
-    n = g.n_nodes
-    free_n, _ = S._free_masks(g)
-    d_n = torch.diagonal(S.block_diagonal(g, lin), dim1=-2, dim2=-1)
-    g_n, _ = S.gradient(g, lin)
-    sc = _scales(d_n, free_n, lam)
-    fac = _scaled_T(g, lin, lam, d_n, free_n, sc, K)
-    parts, ok = _coupling_U(g, lin, aux, free_n, sc)
+    counterpart in the LM -> (dx_n (N, 6), dx_p (P, 3), predicted chi2
+    reduction, ok)."""
+    sizes = (g.n_nodes, g.n_planes)
+    free, d, sc = _pool_terms(g, lin, lam)
+    g_n, g_p = S.gradient(g, lin)
+    fac = _scaled_T(g, lin, lam, d, free, sc, K)
+    parts, ok = _coupling_U(g, lin, aux, free, sc)
     ok = ok & fac.ok
     mtot = sum(p[2].shape[0] for p in parts)
 
+    # T holds a plane's priors and damping only, so a plane that only
+    # plane-plane edges hold has T^-1 ~ 1/lam, and I + U^T T^-1 U spans
+    # ~1e7 at small lam: past a float32 LU. With a plane pool that system
+    # is factored in float64 (it is 6m x 6m, small beside the T-solves).
+    s_dtype = torch.float64 if g.n_planes else sc[0].dtype
     if mtot:
-        Y_U = _solve_T(fac, _U_dense(parts, n, mtot, sc), K)
+        U_n, U_p = _U_dense(parts, sizes, mtot, sc[0])
+        Y_U = _solve_T(fac, U_n, K, U_p)
         LU, piv, info = torch.linalg.lu_factor_ex(
-            torch.eye(6 * mtot, dtype=sc.dtype, device=sc.device)
-            + _Ut_dot(parts, Y_U))
+            torch.eye(6 * mtot, dtype=s_dtype, device=sc[0].device)
+            + _Ut_dot(parts, Y_U).to(s_dtype))
         ok = ok & (info == 0)
 
     def wsolve(r):
-        """(T + U U^T)^-1 r in the scaled space, r (N, 6, 1)."""
-        y = _solve_T(fac, r, K)
+        """(T + U U^T)^-1 r in the scaled space, r = (r_n (N, 6, 1),
+        r_p (P, 3, 1))."""
+        y = _solve_T(fac, r[0], K, r[1])
         if not mtot:
             return y
-        z = torch.linalg.lu_solve(LU, piv, _Ut_dot(parts, y))
-        return y - Y_U @ z
+        z = torch.linalg.lu_solve(LU, piv, _Ut_dot(parts, y).to(s_dtype))
+        z = z.to(y[0].dtype)
+        return tuple(yi - Yi @ z for yi, Yi in zip(y, Y_U))
 
-    b = (-g_n * sc)[..., None]
+    b = [(-gi * si)[..., None] for gi, si in zip((g_n, g_p), sc)]
     x = wsolve(b)
     # one refinement pass against the full damped Hessian (matrix-free)
     # in the scaled space: H^ v = S H S v + damping, and a unit diagonal
     # on projected-out dofs
     hvp = S.make_hvp(g, lin)
-    scv = sc[..., None]
-    Hx = (hvp(x * scv) * scv + ((lam * d_n + 1e-6) * sc * sc)[..., None] * x
-          + (1.0 - (free_n > 0).to(x.dtype))[..., None] * x)
-    x = x + wsolve(b - Hx)
-    dx = x[..., 0] * sc * (free_n > 0)
-    return dx, torch.sum(dx * (lam * d_n * dx - g_n)), ok
+    scv = [si[..., None] for si in sc]
+    Hx = hvp(tuple(xi * si for xi, si in zip(x, scv)))
+    Hx = [h * si + ((lam * di + 1e-6) * s * s)[..., None] * xi
+          + (1.0 - (fi > 0).to(xi.dtype))[..., None] * xi
+          for h, si, di, s, xi, fi in zip(Hx, scv, d, sc, x, free)]
+    e = wsolve([bi - hi for bi, hi in zip(b, Hx)])
+    dx = [(xi + ei)[..., 0] * si * (fi > 0)
+          for xi, ei, si, fi in zip(x, e, sc, free)]
+    pred = sum(torch.sum(dxi * (lam * di * dxi - gi))
+               for dxi, di, gi in zip(dx, d, (g_n, g_p)))
+    return dx[0], dx[1], pred, ok
 
 
 def chain_marginals(g, aux: ChainAux, K: int) -> torch.Tensor:
@@ -340,13 +404,12 @@ def chain_marginals(g, aux: ChainAux, K: int) -> torch.Tensor:
     n = g.n_nodes
     dev = g.poses.device
     aux = aux_to(aux, dev)
-    S.check_families(g)
-    lin = S.LinearizedGraph(*(a.double() for a in S.linearize(g)))
-    free_n, _ = S._free_masks(g)
-    d_n = torch.diagonal(S.block_diagonal(g, lin), dim1=-2, dim2=-1)
-    lam = torch.zeros((), dtype=d_n.dtype, device=dev)
-    sc = _scales(d_n, free_n, lam)
-    fac = _scaled_T(g, lin, lam, d_n, free_n, sc, K)
+    lin = S.LinearizedGraph(*(a if a is None else a.double()
+                              for a in S.linearize(g)))
+    lam = torch.zeros((), dtype=torch.float64, device=dev)
+    free, d, scs = _pool_terms(g, lin, lam)
+    free_n, sc = free[0], scs[0]
+    fac = _scaled_T(g, lin, lam, d, free, scs, K)
     Sg, mi = n // K, 6 * (K - 1)
 
     # T^-1's diagonal blocks. Separators: blocks of the reduced inverse
@@ -373,13 +436,14 @@ def chain_marginals(g, aux: ChainAux, K: int) -> torch.Tensor:
     covT = torch.cat([int_cov, sep_cov[:, None]], dim=1).reshape(n, 6, 6)
 
     # the Woodbury correction at the diagonal
-    parts, ok = _coupling_U(g, lin, aux, free_n, sc)
+    parts, ok = _coupling_U(g, lin, aux, free, scs)
     ok = ok & fac.ok
     mtot = sum(p[2].shape[0] for p in parts)
     if mtot:
-        Y = _solve_T(fac, _U_dense(parts, n, mtot, sc), K)
+        U_n, U_p = _U_dense(parts, (n, g.n_planes), mtot, sc)
+        Y, Y_p = _solve_T(fac, U_n, K, U_p)
         eye_m = torch.eye(6 * mtot, dtype=sc.dtype, device=dev)
-        Smat = eye_m + _Ut_dot(parts, Y)
+        Smat = eye_m + _Ut_dot(parts, (Y, Y_p))
         cS, info = torch.linalg.cholesky_ex(0.5 * (Smat + Smat.T)
                                             + 1e-9 * eye_m)
         ok = ok & (info == 0)

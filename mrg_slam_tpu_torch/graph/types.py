@@ -5,13 +5,14 @@ kernel ids and padding. Node state is a pool of SE(3) poses (6 dof) and a
 pool of planes (3 dof); each edge family has its own masked table:
 
 - SE3-SE3 edges: odometry / loop / anchor (g2o EdgeSE3);
-- unary SE3 priors, SE3-plane edges, plane priors and plane-plane edges.
+- unary SE3 priors: XYZ (XY is XYZ with zero z information), quaternion
+  and vector (include/g2o/edge_se3_priorxyz.hpp etc.);
+- SE3-plane edges: floor constraints (include/g2o/edge_se3_plane.hpp);
+- plane priors (normal, distance) and plane-plane edges (identity,
+  parallel, perpendicular), which the reference registers but its live
+  pipeline does not create.
 
-Only the SE3-SE3 family is solved here. The other tables exist so that a
-graph carries the same layout as the JAX package's (`convert.
-graph_from_numpy`); the floor, GPS and IMU processors that fill them are
-not ported yet (ROADMAP.md queue 1 item 12), and graph/solve.py refuses a
-table that holds an edge.
+A table of zero capacity costs a solve nothing (graph/solve.py).
 """
 
 from __future__ import annotations
@@ -19,6 +20,20 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+# prior edge types
+PRIOR_XYZ = 0
+PRIOR_QUAT = 1
+PRIOR_VEC = 2
+
+# plane-prior edge types (include/g2o/edge_plane_prior.hpp)
+PLANE_PRIOR_NORMAL = 0
+PLANE_PRIOR_DISTANCE = 1
+
+# plane-plane edge types (include/g2o/edge_plane_identity.hpp, _parallel.hpp)
+PLANE_PLANE_IDENTITY = 0
+PLANE_PLANE_PARALLEL = 1
+PLANE_PLANE_PERPENDICULAR = 2
 
 # robust kernel ids (graph/robust.py implements their rho and weights)
 KERNEL_NONE = 0
@@ -210,3 +225,29 @@ class PoseGraphData(NamedTuple):
     @property
     def n_planes(self) -> int:
         return self.planes.shape[0]
+
+
+def plane_basis(n: torch.Tensor) -> torch.Tensor:
+    """(..., 3) unit normals -> (..., 3, 2) tangent bases [b1, b2]: b1 = n x
+    ref normalized, with ref the x axis where |n_x| < 0.9 and the y axis
+    elsewhere, and b2 = n x b1."""
+    ex = torch.zeros_like(n)
+    ex[..., 0] = 1.0
+    ey = torch.zeros_like(n)
+    ey[..., 1] = 1.0
+    ref = torch.where(torch.abs(n[..., 0:1]) < 0.9, ex, ey)
+    b1 = torch.linalg.cross(n, ref, dim=-1)
+    b1 = b1 / torch.clamp(torch.linalg.vector_norm(b1, dim=-1, keepdim=True),
+                          min=1e-12)
+    b2 = torch.linalg.cross(n, b1, dim=-1)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def plane_retract(pi: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """The 3-dof plane chart: the normal moves by B(n) delta[:2] in its
+    tangent plane and is renormalized, d shifts by delta[2]."""
+    n = pi[..., 0:3]
+    n_new = n + (plane_basis(n) @ delta[..., 0:2, None])[..., 0]
+    n_new = n_new / torch.clamp(
+        torch.linalg.vector_norm(n_new, dim=-1, keepdim=True), min=1e-12)
+    return torch.cat([n_new, pi[..., 3:4] + delta[..., 2:3]], dim=-1)

@@ -17,11 +17,14 @@ per-tick marginals (graph/solve.py). Its host reads: one per Gauss-Newton
 sweep and one per pair bucket, one per LM iteration, and one packed read
 of the solve's poses, chi2 and marginals.
 
-Not ported yet, and refused by the constructor: the floor, GPS and IMU
-processors and first-cloud filling (ROADMAP.md queue 1 item 12), and
-other robots in `multi_robot_names`, whose exchange services and
-asynchronous tick wait for item 14. Robots co-hosted on one card share
-one graph through models/shared_graph.py instead.
+The floor, GPS and IMU processors (models/processors.py) are flushed in
+each tick after the keyframe queue, in the JAX package's order
+(backend.py:241-244), and add their priors and plane edges to the graph.
+
+Not ported yet, and refused by the constructor: other robots in
+`multi_robot_names`, whose exchange services and asynchronous tick wait
+for ROADMAP.md queue 1 item 14. Robots co-hosted on one card share one
+graph through models/shared_graph.py instead.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from .keyframe_updater import KeyframeUpdater
 from .loop_detector import LoopDetector
 from .map_cloud import MapCloudGenerator
 from .pair_runner import PairRequest
+from .processors import FloorCoeffsProcessor, GpsProcessor, ImuProcessor
 
 
 def _remove_points_near(points: torch.Tensor, mask: torch.Tensor,
@@ -81,17 +85,13 @@ class TickStats:
 _LATER = "is not ported yet: it waits for ROADMAP.md queue 1 item"
 
 
-def _refuse_processors(cfg: SlamConfig) -> None:
-    """The sensor processors and first-cloud filling wait for item 12."""
-    for on, what in ((cfg.floor_coeffs.enable_floor_coeffs,
-                      "the floor processor"),
-                     (cfg.gps.enable_gps, "the GPS processor"),
-                     (cfg.imu.enable_imu_orientation
-                      or cfg.imu.enable_imu_acceleration,
-                      "the IMU processor"),
-                     (cfg.enable_fill_first_cloud, "filling the first cloud")):
-        if on:
-            raise NotImplementedError(f"{what} {_LATER} 12")
+def _flush_processors(db: GraphDatabase, procs, keyframes) -> bool:
+    """The floor, GPS and IMU processors' flushes into the graph, in the
+    JAX package's order; whether any added an edge."""
+    flushed = False
+    for proc in procs:
+        flushed |= proc.flush(db, keyframes)
+    return flushed
 
 
 def _loops_and_solve(db: GraphDatabase, loop_detector: LoopDetector,
@@ -137,7 +137,6 @@ class MrgSlam:
     MAX_OTHER_ROBOTS = 8  # point-removal centers per scan
 
     def __init__(self, cfg: SlamConfig, device: DeviceLike = None):
-        _refuse_processors(cfg)
         others = sorted(set(cfg.multi_robot_names) - {cfg.own_name})
         if others:
             raise NotImplementedError(
@@ -153,6 +152,10 @@ class MrgSlam:
                                                 cfg.keyframe_delta_angle)
         self.map_generator = MapCloudGenerator.of_config(cfg)
         self.status = SlamStatus(robot_name=cfg.own_name)
+        # the sensor processors, flushed every tick (:819-824)
+        self.gps_processor = GpsProcessor(cfg.gps)
+        self.imu_processor = ImuProcessor(cfg.imu)
+        self.floor_processor = FloorCoeffsProcessor(cfg.floor_coeffs)
         x, y, z, yaw, pitch, roll = cfg.init_pose
         q = se3np.rpy_to_quat(roll, pitch, yaw)
         self.init_pose = np.concatenate(
@@ -224,6 +227,9 @@ class MrgSlam:
         flushed |= self.db.flush_static_keyframe_queue()
         flushed |= self.db.flush_graph_queue()
         flushed |= self.db.flush_loaded_graph()
+        flushed |= _flush_processors(
+            self.db, (self.floor_processor, self.gps_processor,
+                      self.imu_processor), self.db.own_keyframes())
         if not flushed and not self.db.new_keyframes:
             return None
         # covariances of the new keyframes that came without them

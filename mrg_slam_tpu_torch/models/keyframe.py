@@ -43,6 +43,12 @@ class KeyFrame:
     # the cloud with its GICP covariances, made once for the pair program
     # (models/pair_runner.py) or handed over by the front end
     gicp: Optional[GICPCloud] = None
+    # sensor attachments (keyframe.cpp:88-104): set by the processors'
+    # flushes (models/processors.py)
+    floor_coeffs: Optional[np.ndarray] = None
+    utm_coord: Optional[np.ndarray] = None
+    acceleration: Optional[np.ndarray] = None   # (3,) base-frame acc
+    orientation: Optional[np.ndarray] = None    # (4,) wxyz base-frame quat
     prev_edge: Optional["Edge"] = None  # odom edge (from=this, to=prev kf)
     next_edge: Optional["Edge"] = None  # odom edge (from=next kf, to=this)
 

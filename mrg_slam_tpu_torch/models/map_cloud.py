@@ -75,8 +75,13 @@ class MapCloudGenerator:
         parts: List[np.ndarray] = []
         for s in range(0, len(clouds), self.chunk):
             chunk = clouds[s: s + self.chunk]
-            pts = torch.stack([c.points for c in chunk])
-            msk = torch.stack([c.mask for c in chunk])
+            # a filled first keyframe's cloud is larger: pad the others
+            cap = max(c.capacity for c in chunk)
+            pts = torch.stack([torch.nn.functional.pad(
+                c.points, (0, 0, 0, cap - c.capacity), value=PAD_VALUE)
+                for c in chunk])
+            msk = torch.stack([torch.nn.functional.pad(
+                c.mask, (0, cap - c.capacity)) for c in chunk])
             pse = torch.from_numpy(np.asarray(poses[s: s + self.chunk],
                                               np.float32)).to(dev)
             skp = torch.tensor([skip_first and f

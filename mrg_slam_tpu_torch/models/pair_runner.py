@@ -31,7 +31,7 @@ import torch
 
 from ..config import RegistrationConfig
 from ..ops import registration as reg
-from ..ops.cloud import PointCloud
+from ..ops.cloud import PAD_VALUE, PointCloud
 from ..ops.covariance import GICPCloud
 from .keyframe import KeyFrame
 
@@ -110,8 +110,12 @@ class PairRunner:
         """Covariances of every keyframe that has none, PREFETCH_BUCKET
         keyframes per batched pass of the moments kernel."""
         todo = [k for k in kfs if k.gicp is None and k.cloud.capacity > 0]
-        for s in range(0, len(todo), self.PREFETCH_BUCKET):
-            chunk = todo[s: s + self.PREFETCH_BUCKET]
+        # passes by capacity (a filled first keyframe's cloud is larger)
+        groups = {}
+        for k in todo:
+            groups.setdefault(k.cloud.capacity, []).append(k)
+        for chunk in [g[s: s + self.PREFETCH_BUCKET] for g in groups.values()
+                      for s in range(0, len(g), self.PREFETCH_BUCKET)]:
             out = reg.make_source(PointCloud(
                 torch.stack([k.cloud.points for k in chunk]),
                 torch.stack([k.cloud.mask for k in chunk])), self.reg_cfg)
@@ -122,25 +126,39 @@ class PairRunner:
     def run(self, requests: List[PairRequest]) -> List[PairResult]:
         if not requests:
             return []
-        cap = requests[0].target.cloud.capacity
+        cap = max(max(r.target.cloud.capacity, r.source.cloud.capacity)
+                  for r in requests)
         step = self.max_bucket(cap)
         out: List[PairResult] = []
         for s in range(0, len(requests), step):
             out.extend(self._run_bucket(requests[s: s + step]))
         return out
 
+    @staticmethod
+    def _padded(gc: GICPCloud, cap: int) -> GICPCloud:
+        """A keyframe's GICP cloud padded to `cap` lanes (masked out,
+        identity covariances), which take no part in a solve. Only a
+        filled first keyframe's cloud (graph_database.py) is larger than
+        the others; the JAX package's bucket asserts on it instead
+        (pair_runner.py:197-202)."""
+        k = cap - gc.points.shape[-2]
+        if not k:
+            return gc
+        pts = torch.full((k, 3), PAD_VALUE, dtype=gc.points.dtype,
+                         device=gc.points.device)
+        eye = torch.eye(3, dtype=gc.covs.dtype, device=gc.covs.device)
+        return GICPCloud(torch.cat([gc.points, pts]),
+                         torch.cat([gc.mask, gc.mask.new_zeros(k)]),
+                         torch.cat([gc.covs, eye.expand(k, 3, 3)]))
+
     def _run_bucket(self, requests: List[PairRequest]) -> List[PairResult]:
-        cap = requests[0].target.cloud.capacity
-        for r in requests:
-            if (r.target.cloud.capacity != cap
-                    or r.source.cloud.capacity != cap):
-                raise ValueError(
-                    "a bucket's keyframe clouds must share one capacity (got "
-                    f"{r.target.cloud.capacity}/{r.source.cloud.capacity}, "
-                    f"expected {cap})")
+        tgts = [self.gicp(r.target) for r in requests]
+        srcs = [self.gicp(r.source) for r in requests]
+        cap = max(c.points.shape[-2] for c in tgts + srcs)
+        tgts = [self._padded(c, cap) for c in tgts]
+        srcs = [self._padded(c, cap) for c in srcs]
         packed = reg.align_pairs_packed(
-            self.reg_cfg, [self.gicp(r.target) for r in requests],
-            [self.gicp(r.source) for r in requests],
+            self.reg_cfg, tgts, srcs,
             np.stack([np.asarray(r.init_pose, np.float32)
                       for r in requests]),
             np.asarray([r.max_iters for r in requests], np.int32),

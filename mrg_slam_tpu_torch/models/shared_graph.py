@@ -12,9 +12,9 @@ apply, through each robot's own `slam_uuid`), and one LM solve per tick
 optimizes the joint graph. Each robot keeps its own view: the keyframe
 admission gate, its odom->map transform and its status.
 
-The views hold no floor, GPS or IMU processor: a config that enables one
-(or first-cloud filling) is refused, as MrgSlam refuses it, until
-ROADMAP.md queue 1 item 12.
+Each view owns its floor, GPS and IMU processors, which a tick flushes
+per robot over that robot's keyframes (the JAX package's
+shared_graph.py:222-230).
 """
 
 from __future__ import annotations
@@ -30,14 +30,15 @@ from ..ops.covariance import GICPCloud
 from ..parallel.messages import PoseWithName, SlamStatus
 from ..runtime import DeviceLike
 from ..utils import se3np
-from .backend import (MrgSlam, TickStats, _loops_and_solve,
-                      _refuse_processors, _remove_points_near)
+from .backend import (MrgSlam, TickStats, _flush_processors,
+                      _loops_and_solve, _remove_points_near)
 from .graph_database import GraphDatabase
 from .keyframe import new_uuid
 from .keyframe_updater import KeyframeUpdater
 from .loop_detector import LoopDetector
 from .map_cloud import MapCloudGenerator
 from .pair_runner import PairRequest
+from .processors import FloorCoeffsProcessor, GpsProcessor, ImuProcessor
 
 
 class _RobotView:
@@ -57,6 +58,9 @@ class _RobotView:
         self.init_done = False
         self.status = SlamStatus(robot_name=name)
         self.last_odom_pose: Optional[np.ndarray] = None
+        self.gps_processor = GpsProcessor(cfg.gps)
+        self.imu_processor = ImuProcessor(cfg.imu)
+        self.floor_processor = FloorCoeffsProcessor(cfg.floor_coeffs)
 
 
 class SharedGraphSlam:
@@ -74,7 +78,6 @@ class SharedGraphSlam:
                  device: DeviceLike = None):
         if not robot_names:
             raise ValueError("need at least one robot")
-        _refuse_processors(cfg)
         self.cfg = cfg
         self.db = GraphDatabase(cfg, device=device)
         self.loop_detector = LoopDetector(cfg.loop, cfg.registration)
@@ -182,6 +185,14 @@ class SharedGraphSlam:
         flushed |= self.db.flush_static_keyframe_queue()
         flushed |= self.db.flush_graph_queue()
         flushed |= self.db.flush_loaded_graph()
+        by_robot: Dict[str, List] = {}
+        for k in self.db.keyframes + self.db.new_keyframes:
+            if k.odom_counter >= 0:
+                by_robot.setdefault(k.robot_name, []).append(k)
+        for name, view in self.views.items():
+            flushed |= _flush_processors(
+                self.db, (view.floor_processor, view.gps_processor,
+                          view.imu_processor), by_robot.get(name, []))
         if not flushed and not self.db.new_keyframes:
             return None
         self.loop_detector.runner.prefetch_batch(self.db.new_keyframes)

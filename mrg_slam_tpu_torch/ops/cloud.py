@@ -76,3 +76,10 @@ def compact(cloud: PointCloud, capacity: Optional[int] = None) -> PointCloud:
     mask = torch.gather(cloud.mask, -1, order)
     pts, mask = pts[..., :cap, :], mask[..., :cap]
     return PointCloud(pad_invalid(pts, mask), mask)
+
+
+def merge(a: PointCloud, b: PointCloud, capacity: int) -> PointCloud:
+    """Concatenate two padded clouds, then compact to `capacity`."""
+    return compact(PointCloud(torch.cat([a.points, b.points], dim=-2),
+                              torch.cat([a.mask, b.mask], dim=-1)),
+                   capacity)

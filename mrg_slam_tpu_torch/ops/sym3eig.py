@@ -55,10 +55,12 @@ def _eigvec_for(A: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     nv = torch.sqrt(torch.clamp(torch.sum(v * v, dim=-1, keepdim=True),
                                 min=1e-30))
     v = v / nv
-    # all cross products ~0 (isotropic block): fall back to the z axis
+    # all cross products ~0 (isotropic block): fall back to the z axis,
+    # made on the device (writing a scalar into a 0-dim slice copies it
+    # from the host and syncs the stream)
     degen = torch.maximum(torch.maximum(n01, n02), n12) < 1e-20
-    ez = torch.zeros_like(v)
-    ez[..., 2] = 1.0
+    ez = torch.where(torch.arange(3, device=v.device) == 2, 1.0, 0.0).to(
+        v.dtype)
     return torch.where(degen[..., None], ez, v)
 
 

@@ -7,12 +7,15 @@ world, with ground truth for ATE. Ported here:
   1. odometry only (prefilter + GICP), per frame or fused;
   2. full single-robot graph SLAM (keyframes + loops + optimization),
      through `replay` or `replay_fused`;
+  3. floor-augmented SLAM (RANSAC ground plane and EdgeSE3Plane);
   7. full SLAM through moving occluders;
 
-and the ring pose graph, the workload of the solver section and of row 5
-(`5_distributed_mesh_solve`). Rows 3, 4 and 6 wait for ROADMAP.md queue 1
-items 12 and 14. Each row runs on the card unless `device` says
-otherwise, and returns the JAX package's keys plus the keyframes.
+the ring pose graph, the workload of the solver section and of row 5
+(`5_distributed_mesh_solve`), and a ring that carries every prior and
+plane family (`family_graph_spec`, numpy, for either package's
+GraphSLAM). Rows 4 and 6 wait for ROADMAP.md queue 1 item 14. Each row
+runs on the card unless `device` says otherwise, and returns the JAX
+package's keys plus the keyframes.
 """
 
 from __future__ import annotations
@@ -138,14 +141,15 @@ def config1_odometry_only(n_frames=120, fused=False,
             "frames_per_s": n_frames / wall}
 
 
-def _slam_row(name, frames, traj, fused, device) -> Dict:
-    robot = Robot(_base_cfg(), device=device)
+def _slam_row(name, frames, traj, fused, device, cfg=None) -> Dict:
+    robot = Robot(cfg or _base_cfg(), device=device)
     run = replay_fused if fused else replay
     res = run(robot, frames, tick_every=20, gt_xyz=traj[:, :3])
     return {"config": name + ("_fused" if fused else ""),
             "ate_rmse": res.ate, "rpe_rmse": res.rpe,
             "loops": res.num_loops,
             "keyframes": len(res.keyframe_trajectory),
+            "plane_edges": robot.slam.db.graph.num_plane_edges,
             "frames": len(frames), "frames_per_s": res.frames_per_s,
             "keyframe_trajectory": res.keyframe_trajectory}
 
@@ -159,6 +163,33 @@ def config2_full_slam(n_frames=120, fused=False,
     traj = circle_trajectory(n_frames, radius=14.0, laps=1.25)
     frames = [(i * 0.1, world.scan(p, seed=i)) for i, p in enumerate(traj)]
     return _slam_row("2_full_graph_slam", frames, traj, fused, device)
+
+
+def floor_cfg() -> EngineConfig:
+    """Row 3's configuration (baseline_runs.py:154-166 of the JAX
+    package): `_base_cfg()` with floor detection (sensor height 1.5 m,
+    clip range 1.0 m, 150 floor points) and the floor processor on."""
+    cfg = _base_cfg()
+    return dataclasses.replace(
+        cfg,
+        floor=dataclasses.replace(cfg.floor, enable_floor_detection=True,
+                                  sensor_height=1.5, height_clip_range=1.0,
+                                  floor_pts_thresh=150),
+        slam=dataclasses.replace(cfg.slam, floor_coeffs=dataclasses.replace(
+            cfg.slam.floor_coeffs, enable_floor_coeffs=True)))
+
+
+def config3_floor_augmented(n_frames=100,
+                            device: DeviceLike = None) -> Dict:
+    """Row 3: full SLAM on the flat-ground world over 1.1 laps of a 12 m
+    circle, a tick every 20 frames, with a floor plane fitted on every
+    filtered scan and tied to its keyframe (EdgeSE3Plane to one fixed
+    z = 0 plane)."""
+    world = _world(flat_ground=True)
+    traj = circle_trajectory(n_frames, radius=12.0, laps=1.1)
+    frames = [(i * 0.1, world.scan(p, seed=i)) for i, p in enumerate(traj)]
+    return _slam_row("3_floor_augmented", frames, traj, False, device,
+                     cfg=floor_cfg())
 
 
 def config7_dynamic_world(n_frames=110, device: DeviceLike = None) -> Dict:
@@ -208,3 +239,140 @@ def build_ring_graph(n_nodes=256, capacity_nodes=None, capacity_edges=None,
     gs.add_se3_edge(ids[-1], ids[0],
                     se3np.pose_between(gt[-1], gt[0]), info * 4)
     return gs
+
+
+def _quat_axis_angle(w: np.ndarray) -> np.ndarray:
+    """Rotation vectors (..., 3) -> unit quaternions (..., 4), w first."""
+    th = np.linalg.norm(w, axis=-1, keepdims=True)
+    axis = w / np.maximum(th, 1e-12)
+    return np.concatenate([np.cos(th / 2), np.sin(th / 2) * axis], axis=-1)
+
+
+def family_graph_spec(n_nodes: int = 256, seed: int = 0) -> Dict:
+    """A ring pose graph that carries every prior and plane family, as
+    numpy: the workload that holds the solvers' prior and plane paths to
+    the JAX package's (`fill_family_graph` fills either package's
+    GraphSLAM from it).
+
+    Ground truth on a 20 m circle whose height and tilt wave gently;
+    odometry edges perturbed by N(0, 0.03) twists and a last-to-first
+    loop, the estimates accumulated from a fixed first node; an XYZ prior
+    on every 8th node and an XY prior on every 8th from the 4th (sigma
+    0.5 m, z 1 m), a quaternion and a gravity-vector prior on every 4th
+    (sigma 0.05); the fixed floor plane z = 0 with an SE3-plane edge to
+    every node (sigma 0.05, the local plane of the true pose, perturbed);
+    a free wall x = 25 started off by 0.1 rad and 0.4 m with a normal and
+    a distance prior; a second free wall x = 30, tied to the first by an
+    identity edge (offset (0, 0, 0, -5)) and a parallel edge, and the
+    first wall perpendicular to the floor."""
+    from ..utils import se3np
+
+    rng = np.random.default_rng(seed)
+    th = 2 * np.pi * np.arange(n_nodes) / n_nodes
+    gt_t = np.stack([20 * np.cos(th), 20 * np.sin(th),
+                     0.3 * np.sin(3 * th)], 1)
+    gt_w = np.stack([0.05 * np.sin(5 * th), 0.05 * np.cos(4 * th), th], 1)
+    gt = np.concatenate([gt_t, _quat_axis_angle(gt_w)], 1).astype(np.float32)
+    noise_t = rng.normal(scale=0.03, size=(n_nodes - 1, 3))
+    noise_q = _quat_axis_angle(rng.normal(scale=0.03, size=(n_nodes - 1, 3)))
+    info = np.diag([100.0] * 3 + [400.0] * 3).astype(np.float32)
+    est, odom = [gt[0]], []
+    for i in range(1, n_nodes):
+        rel = se3np.pose_between(gt[i - 1], gt[i])
+        reln = se3np.pose_compose(rel, np.concatenate(
+            [noise_t[i - 1], noise_q[i - 1]]).astype(np.float32))
+        odom.append((i - 1, i, reln, info))
+        est.append(se3np.pose_compose(est[-1], reln))
+    odom.append((n_nodes - 1, 0, se3np.pose_between(gt[-1], gt[0]),
+                 info * 4))
+
+    def noisy(x, s):
+        return (np.asarray(x) + rng.normal(scale=s, size=np.shape(x))
+                ).astype(np.float32)
+
+    xyz = [(i, noisy(gt[i, :3], 0.5),
+            np.diag([4.0, 4.0, 1.0]).astype(np.float32))
+           for i in range(0, n_nodes, 8)]
+    xy = [(i, noisy(gt[i, :2], 0.5), np.eye(2, dtype=np.float32) * 4.0)
+          for i in range(4, n_nodes, 8)]
+    quat = []
+    vec = []
+    for i in range(0, n_nodes, 4):
+        q = se3np.quat_mul(gt[i, 3:7], _quat_axis_angle(
+            rng.normal(scale=0.05, size=3)))
+        quat.append((i, q.astype(np.float32),
+                     np.eye(3, dtype=np.float32) * 400.0))
+        up = se3np.quat_rotate(se3np.quat_conjugate(gt[i, 3:7]),
+                               np.asarray([0.0, 0.0, 1.0]))
+        up = noisy(up, 0.05)
+        vec.append((i, np.asarray([0.0, 0.0, 1.0], np.float32),
+                    up / np.linalg.norm(up),
+                    np.eye(3, dtype=np.float32) * 400.0))
+    floor = []
+    for i in range(n_nodes):
+        R = np.stack([se3np.quat_rotate(gt[i, 3:7], e) for e in np.eye(3)], 1)
+        n_l = R.T @ np.asarray([0.0, 0.0, 1.0])
+        local = np.concatenate([noisy(n_l, 0.02), noisy(gt[i, 2:3], 0.02)])
+        floor.append((i, local,
+                      np.eye(3, dtype=np.float32) * 400.0))
+    n0 = np.asarray([np.cos(0.1), np.sin(0.1), 0.0])
+    return dict(
+        n_nodes=n_nodes, poses=np.stack(est).astype(np.float32),
+        odometry=odom, prior_xyz=xyz, prior_xy=xy, prior_quat=quat,
+        prior_vec=vec, floor_edges=floor,
+        planes=[(np.asarray([0, 0, 1, 0], np.float32), True),
+                (np.asarray([*n0, -24.6], np.float32), False),
+                (np.asarray([*n0, -30.3], np.float32), False)],
+        plane_prior_normal=[(1, np.asarray([1, 0, 0], np.float32),
+                             np.eye(3, dtype=np.float32) * 100.0)],
+        plane_prior_distance=[(1, -25.0, 100.0)],
+        plane_identity=[(1, 2, np.asarray([0, 0, 0, -5], np.float32),
+                         np.eye(4, dtype=np.float32) * 100.0)],
+        plane_parallel=[(1, 2, np.zeros(3, np.float32),
+                         np.eye(3, dtype=np.float32) * 100.0)],
+        plane_perpendicular=[(0, 1, 0.0, 100.0)])
+
+
+def fill_family_graph(gs, spec: Dict):
+    """Fill a GraphSLAM (this package's or the JAX package's: the same
+    add_* calls) from `family_graph_spec`; the first node is fixed.
+    Returns `gs`."""
+    for i, pose in enumerate(spec["poses"]):
+        gs.add_se3_node(pose, fixed=(i == 0))
+    for a, b, meas, info in spec["odometry"]:
+        gs.add_se3_edge(a, b, meas, info)
+    for i, xyz, info in spec["prior_xyz"]:
+        gs.add_se3_prior_xyz_edge(i, xyz, info)
+    for i, xy, info in spec["prior_xy"]:
+        gs.add_se3_prior_xy_edge(i, xy, info)
+    for i, q, info in spec["prior_quat"]:
+        gs.add_se3_prior_quat_edge(i, q, info)
+    for i, d, m, info in spec["prior_vec"]:
+        gs.add_se3_prior_vec_edge(i, d, m, info)
+    for coeffs, fixed in spec["planes"]:
+        gs.add_plane_node(coeffs, fixed=fixed)
+    for i, local, info in spec["floor_edges"]:
+        gs.add_se3_plane_edge(i, 0, local, info)
+    for j, normal, info in spec["plane_prior_normal"]:
+        gs.add_plane_prior_normal_edge(j, normal, info)
+    for j, dist, info in spec["plane_prior_distance"]:
+        gs.add_plane_prior_distance_edge(j, dist, info)
+    for a, b, meas, info in spec["plane_identity"]:
+        gs.add_plane_identity_edge(a, b, meas, info)
+    for a, b, meas, info in spec["plane_parallel"]:
+        gs.add_plane_parallel_edge(a, b, meas, info)
+    for a, b, dot, info in spec["plane_perpendicular"]:
+        gs.add_plane_perpendicular_edge(a, b, meas_dot=dot, info1=info)
+    return gs
+
+
+def family_graph_capacities(spec: Dict) -> Dict[str, int]:
+    """GraphSLAM capacities that hold `family_graph_spec(n)` exactly
+    (the node capacity n, a power of two, as the chain backend wants)."""
+    n = spec["n_nodes"]
+    return dict(capacity_nodes=n, capacity_edges=len(spec["odometry"]),
+                capacity_planes=len(spec["planes"]),
+                capacity_priors=sum(len(spec[k]) for k in (
+                    "prior_xyz", "prior_xy", "prior_quat", "prior_vec")),
+                capacity_plane_edges=len(spec["floor_edges"]),
+                capacity_plane_priors=2, capacity_plane_plane=3)

@@ -64,6 +64,8 @@ from mrg_slam_tpu_torch.ops.fitness import fitness_score
 from mrg_slam_tpu_torch.ops.prefilter import prefilter
 from mrg_slam_tpu_torch.utils import se3np
 
+from test_torch_multirobot import one_thread  # noqa: F401 (a fixture)
+
 CAP, FRAMES = 256, 66
 JREG = jconfig.RegistrationConfig(
     registration_method="SMALL_GICP", reg_transformation_epsilon=1e-3,
@@ -328,17 +330,48 @@ def test_slam_configs_round_trip():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(gps=jconfig.GpsConfig(enable_gps=True)), "item 12"),
-    (dict(imu=jconfig.ImuConfig(enable_imu_orientation=True)), "item 12"),
+    (dict(gps=jconfig.GpsConfig(enable_gps=True)), "gps"),
+    (dict(imu=jconfig.ImuConfig(enable_imu_orientation=True,
+                                enable_imu_acceleration=True)), "imu"),
     (dict(floor_coeffs=jconfig.FloorCoeffsConfig(enable_floor_coeffs=True)),
-     "item 12"),
-    (dict(enable_fill_first_cloud=True), "item 12"),
+     "floor"),
+    (dict(enable_fill_first_cloud=True), "fill"),
     (dict(multi_robot_names=("atlas", "bestla")), "item 14")])
-def test_unported_features_raise(change, item):
+def test_unported_features_raise(world, change, item):
+    """Other robots in multi_robot_names still raise (the exchange, item
+    14). The sensor processors and first-cloud filling are ported: MrgSlam
+    takes them, and a tick over six frames (three keyframes) adds their
+    edges, or the filled first cloud."""
     cfg = config_from_fields(dataclasses.asdict(
         dataclasses.replace(JSLAM, **change)))
-    with pytest.raises(NotImplementedError, match=item):
-        MrgSlam(cfg, device="cpu")
+    if item == "item 14":
+        with pytest.raises(NotImplementedError, match=item):
+            MrgSlam(cfg, device="cpu")
+        return
+    from mrg_slam_tpu_torch.models.floor_detection import FloorCoeffs
+    from mrg_slam_tpu_torch.models.processors import GpsFix, ImuSample
+    slam = MrgSlam(cfg, device="cpu")
+    for i in range(6):
+        pts, mask = world["clouds"][i]
+        slam.process_scan(i * 0.1, world["odom"][i], PointCloud(
+            torch.from_numpy(pts), torch.from_numpy(mask)))
+        slam.gps_processor.add_fix(GpsFix(i * 0.1, 48.0 + 1e-5 * i, 11.0,
+                                          500.0))
+        slam.imu_processor.add_sample(ImuSample(
+            i * 0.1, np.asarray([1.0, 0, 0, 0], np.float32),
+            np.asarray([0, 0, 9.81], np.float32)))
+        slam.floor_processor.add_coeffs(FloorCoeffs(
+            i * 0.1, np.asarray([0, 0, 1, 1.5], np.float32)))
+    stats = slam.optimization_tick()
+    g = slam.db.graph
+    assert stats is not None and np.isfinite(stats.chi2_after)
+    kfs = len(slam.db.own_keyframes())
+    assert kfs == 3
+    want = dict(gps=(kfs, 0, 0), imu=(2 * kfs, 0, 0), floor=(0, kfs, 1),
+                fill=(0, 0, 0))[item]
+    assert (g._priors.n, g.num_plane_edges, len(g.planes)) == want
+    first = slam.db.own_keyframes()[0]
+    assert (first.cloud.capacity > CAP) == (item == "fill")
 
 
 def test_unported_queues_raise_only_when_used():

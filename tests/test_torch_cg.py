@@ -116,7 +116,7 @@ def test_make_hvp_matches_the_dense_hessian():
     H = H - torch.diag(1.0 - free)
     v = torch.from_numpy(np.random.default_rng(1).normal(
         size=(g.n_nodes, 6, 3)).astype(np.float32))
-    got = solve.make_hvp(g, lin)(v)
+    got, = solve.make_hvp(g, lin)((v,))
     want = (H @ v.reshape(-1, 3)).view(g.n_nodes, 6, 3)
     scale = float(want.abs().max())
     assert scale > 1.0
@@ -129,19 +129,20 @@ def test_pcg_solve_matches_a_dense_solve_and_stops_each_system():
     n = g.n_nodes
     lin = solve.linearize(g)
     hvp = solve.make_hvp(g, lin)
-    D = solve.block_diagonal(g, lin)
+    D, _ = solve.block_diagonal(g, lin)
     d = torch.diagonal(D, dim1=-2, dim2=-1)
     fn, _ = solve._free_masks(g)
     lam = 1e-2
     ridge = (lam * d + 1e-6)[..., None]
-    A = lambda v: hvp(v) + ridge * v  # noqa: E731
-    Minv = solve._block_jacobi(D, lam, d, fn)
+    A = lambda v: (hvp(v)[0] + ridge * v[0],)  # noqa: E731
+    M = solve._block_jacobi(D, lam, d, fn)
+    Minv = lambda v: (M(v[0]),)  # noqa: E731
     rng = np.random.default_rng(2)
     b = torch.from_numpy(rng.normal(size=(n, 6, 3)).astype(np.float32))
     b = b * fn[:, :, None]
     b[..., 1] *= 1e-3      # a system of another scale
     b[..., 2] = 0.0        # and one that is solved before it starts
-    x, iters = solve.pcg_solve(A, Minv, b, 400, 1e-7)
+    (x,), iters = solve.pcg_solve(A, Minv, (b,), 400, 1e-7)
     # float64 reference of the same operator on the free dofs
     H, _, free = solve.assemble_dense(g, lin)
     Hd = H.double() + torch.diag(
@@ -158,8 +159,8 @@ def test_pcg_solve_matches_a_dense_solve_and_stops_each_system():
     assert 0 < iters[0] < 400 and 0 < iters[1] < 400
     # each system alone iterates as long as in the batch
     for c in range(3):
-        xc, ic = solve.pcg_solve(A, Minv, b[..., c:c + 1].contiguous(), 400,
-                                 1e-7)
+        (xc,), ic = solve.pcg_solve(A, Minv, (b[..., c:c + 1].contiguous(),),
+                                    400, 1e-7)
         assert int(ic[0]) == int(iters[c])
         scale = max(float(xc.abs().max()), 1e-30)
         assert float((xc[..., 0] - x[..., c]).abs().max()) <= 1e-5 * scale

@@ -128,7 +128,8 @@ def test_chain_step_matches_dense_step_and_jax(K):
     a = jgs._se3.arrays
     aux = chain_solver.aux_to(chain_solver.classify(
         a["from_idx"], a["to_idx"], jgs._se3.mask(), 0, 0), "cpu")
-    dx, pred, ok = chain_solver.chain_delta(g, lin, torch.tensor(lam), aux, K)
+    dx, _, pred, ok = chain_solver.chain_delta(g, lin, torch.tensor(lam), aux,
+                                               K)
     assert bool(ok)
     n = g.n_nodes
     xd = x_dense[:6 * n].view(n, 6).numpy()

@@ -118,7 +118,8 @@ def test_optimize_with_chordal_init_reaches_jax_chi2(jax_ring):
 
 def test_build_ring_graph_matches_jax(jax_ring):
     want, got = jax_ring, _port_ring()
-    assert got.cap == dict(nodes=256, edges=256)
+    assert got.cap == dict(nodes=256, edges=256, planes=0, priors=0,
+                           plane_edges=0, plane_priors=0, plane_plane=0)
     assert got.cfg.solver_backend == "dense"
     assert got.num_nodes == want.num_nodes == 128
     assert got.num_edges == want.num_edges == 128

@@ -706,3 +706,96 @@ def test_scan_matching_odometry_on_the_card_matches_the_cpu(dev):
     ate = [ate_rmse(np.stack([o.pose for o in r])[:, :3], traj[:, :3])
            for r in (a, b)]
     assert abs(ate[0] - ate[1]) < 0.01 and max(ate) < 0.1
+
+
+def test_floor_detection_on_the_card_matches_the_cpu(rng, dev):
+    """FloorDetection on a filtered-scan-sized cloud (a floor 1.5 m down,
+    a wall, clutter) on the card and the CPU with the same RANSAC
+    triplets (drawn on the CPU from the same seed): the same verdict and
+    coefficients within 1e-4; the card's own generator draws on the card
+    and finds the floor too."""
+    from mrg_slam_tpu_torch.config import FloorDetectionConfig
+    from mrg_slam_tpu_torch.models.floor_detection import FloorDetection
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud
+    from mrg_slam_tpu_torch.ops.ransac import sample_triplets
+
+    g = np.stack([rng.uniform(-25, 25, 700), rng.uniform(-25, 25, 700),
+                  rng.normal(-1.5, 0.02, 700)], 1)
+    w = np.stack([rng.uniform(-20, 20, 200), np.full(200, 12.0),
+                  rng.uniform(-1.5, 1.5, 200)], 1)
+    c = rng.uniform([-20, -20, -1.5], [20, 20, 1.0], (100, 3))
+    pts = np.concatenate([g, w, c]).astype(np.float32)
+    cfg = FloorDetectionConfig(enable_floor_detection=True,
+                               sensor_height=1.5, floor_pts_thresh=150)
+
+    def sampler():
+        gen = torch.Generator()
+        gen.manual_seed(3)
+        return lambda mask, num: sample_triplets(mask.cpu(), num, gen).to(
+            mask.device)
+
+    out = [FloorDetection(cfg, sampler=sampler()).detect(
+        PointCloud.from_array(pts, 1024, device=d), 0.5)
+        for d in ("cpu", dev)]
+    assert out[0] is not None and out[1] is not None
+    np.testing.assert_allclose(out[1].coeffs, out[0].coeffs, atol=1e-4)
+    own = FloorDetection(cfg, seed=1).detect(
+        PointCloud.from_array(pts, 1024, device=dev), 0.5)
+    assert own is not None and own.coeffs[2] > 0.99
+    assert abs(own.coeffs[3] - 1.5) < 0.05
+
+
+def test_floor_detection_reads_the_card_once(rng, dev):
+    """A warm FloorDetection.detect on the card, with normal filtering
+    and a tilt, makes one synchronizing call: its packed read."""
+    import warnings
+
+    from mrg_slam_tpu_torch.config import FloorDetectionConfig
+    from mrg_slam_tpu_torch.models.floor_detection import FloorDetection
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud
+
+    pts = np.stack([rng.uniform(-25, 25, 900), rng.uniform(-25, 25, 900),
+                    rng.normal(-1.5, 0.02, 900)], 1).astype(np.float32)
+    cfg = FloorDetectionConfig(enable_floor_detection=True,
+                               sensor_height=1.5, floor_pts_thresh=150,
+                               enable_normal_filtering=True, tilt_deg=2.0)
+    det = FloorDetection(cfg, seed=1)
+    cloud = PointCloud.from_array(pts, 1024, device=dev)
+    det.detect(cloud, 0.0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            det.detect(cloud, 0.1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    reads = [w for w in seen
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(reads) == 1, [(str(w.message), w.filename, w.lineno)
+                             for w in seen]
+
+
+@pytest.mark.parametrize("backend", ["dense", "cg", "chain"])
+def test_family_graph_on_the_card_matches_the_cpu(dev, backend):
+    """Every prior and plane family on one ring (family_graph_spec(64)),
+    40 LM iterations on the card and the CPU: chi2 within rel 1e-3 (the
+    ROADMAP's solver gate) and the planes within 1e-3."""
+    from mrg_slam_tpu_torch.config import OptimizerConfig
+    from mrg_slam_tpu_torch.graph.builder import GraphSLAM
+    from mrg_slam_tpu_torch.pipeline import baseline_runs as bl
+
+    spec = bl.family_graph_spec(64, 0)
+    out = []
+    for d in ("cpu", dev):
+        gs = bl.fill_family_graph(GraphSLAM(
+            OptimizerConfig(solver_backend=backend,
+                            g2o_solver_num_iterations=40), device=d,
+            **bl.family_graph_capacities(spec)), spec)
+        gs.optimize()
+        out.append(gs)
+    np.testing.assert_allclose(out[1].chi2_final, out[0].chi2_final,
+                               rtol=1e-3)
+    np.testing.assert_allclose(out[1].planes, out[0].planes, atol=1e-3)
+    assert out[1].last_marginals is not None
+    assert np.isfinite(out[1].last_marginals).all()

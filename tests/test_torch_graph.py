@@ -44,6 +44,8 @@ from mrg_slam_tpu_torch.graph.types import PoseGraphData, SE3Edges
 from mrg_slam_tpu_torch.utils import se3 as tse3
 from mrg_slam_tpu_torch.utils import se3np
 
+from test_torch_multirobot import one_thread  # noqa: F401 (a fixture)
+
 JCFG = JOptimizerConfig(solver_backend="dense", g2o_solver_num_iterations=64)
 CFG = config_from_fields(dataclasses.asdict(JCFG))
 
@@ -200,7 +202,9 @@ def test_builder_solves_and_reads_back_once(ring):
                         a["meas"][e], a["info"][e],
                         kernel=kernels[int(a["kernel"][e])],
                         kernel_delta=float(a["delta"][e]))
-    assert gs.cap == dict(nodes=32, edges=32)  # 4 doubled three times
+    # 4 doubled three times; the prior and plane tables hold nothing
+    assert gs.cap == dict(nodes=32, edges=32, planes=0, priors=0,
+                          plane_edges=0, plane_priors=0, plane_plane=0)
     gs.optimize()
     np.testing.assert_allclose(gs.chi2_final, ring["chi2"][1], rtol=1e-3)
     assert np.abs(gs.poses[:, :3] - ring["poses"][:n, :3]).max() < 1e-2
@@ -226,7 +230,9 @@ def test_np_table_grow_doubles_and_keeps_rows():
 
 def test_unported_solvers_and_families_raise(ring):
     """The large-graph solvers resolve (ROADMAP item 13, once refused
-    here); the prior and plane families still raise (item 12)."""
+    here), and so do the prior and plane families (item 12, once refused
+    here): a live XYZ prior on the ring reaches the JAX package's chi2
+    within rel 1e-3."""
     g = _port(ring)
     for backend in ("cg", "chain"):
         res = solve.optimize(g, dataclasses.replace(
@@ -242,11 +248,25 @@ def test_unported_solvers_and_families_raise(ring):
     assert solve.resolve_marginals_mode("auto", 512) == "exact"
     assert solve.resolve_marginals_mode("auto", 1024) == "cg"
     assert solve.resolve_marginals_mode("auto", 2048) == "cg"
-    # an empty prior table is elided, one holding an edge is refused
+    # an empty prior table changes nothing; a live prior (ported since
+    # item 12, once refused here) is solved as the JAX package solves it
     spare = PoseGraphData.empty(32, 64, n_priors=4)
     g2 = g._replace(priors=spare.priors)
-    assert solve.optimize(g2, CFG).iterations >= 1
-    live = spare.priors._replace(mask=torch.tensor([True, False, False,
-                                                    False]))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        solve.optimize(g._replace(priors=live), CFG)
+    np.testing.assert_allclose(float(solve.optimize(g2, CFG).chi2_final),
+                               ring["chi2"][1], rtol=1e-3)
+    from mrg_slam_tpu.graph.types import PriorEdges as JPriorEdges
+    meas = np.zeros((4, 8), np.float32)
+    meas[0, :3] = ring["poses"][5, :3] + [0.5, -0.3, 0.2]
+    info = np.zeros((4, 3, 3), np.float32)
+    info[0] = np.eye(3) * 50.0
+    prior = JPriorEdges(node_idx=np.asarray([5, 0, 0, 0], np.int32),
+                        ptype=np.zeros(4, np.int32), meas=meas, info=info,
+                        kernel=np.zeros(4, np.int32),
+                        delta=np.ones(4, np.float32),
+                        mask=np.asarray([True, False, False, False]))
+    g_np = ring["g"]._replace(priors=prior)
+    want = jsolve.optimize(jax.tree.map(jnp.asarray, g_np), JCFG)
+    got = solve.optimize(graph_from_numpy(g_np, device="cpu"), CFG)
+    assert float(want.chi2_final) > ring["chi2"][1] + 1.0  # it pulls
+    np.testing.assert_allclose(float(got.chi2_final),
+                               float(want.chi2_final), rtol=1e-3)

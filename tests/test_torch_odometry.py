@@ -43,6 +43,8 @@ from mrg_slam_tpu_torch.ops.covariance import GICPCloud
 from mrg_slam_tpu_torch.ops.prefilter import prefilter
 from mrg_slam_tpu_torch.utils.metrics import ate_rmse
 
+from test_torch_multirobot import one_thread  # noqa: F401 (a fixture)
+
 FRAMES = 12
 JCFG = JScanMatchingOdometryConfig(
     keyframe_delta_translation=2.0,

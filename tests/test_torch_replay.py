@@ -41,7 +41,7 @@ from mrg_slam_tpu_torch.ops.covariance import GICPCloud
 from mrg_slam_tpu_torch.pipeline import replay as treplay
 from mrg_slam_tpu_torch.utils.tum import load_tum
 
-from test_torch_multirobot import exact_sqdist
+from test_torch_multirobot import exact_sqdist, one_thread  # noqa: F401
 
 FRAMES, TICK = 30, 12
 _REG = jconfig.RegistrationConfig(reg_transformation_epsilon=1e-3,

@@ -13,12 +13,12 @@ on the CPU they agree to ~1e-5 m.
 import dataclasses
 
 import numpy as np
-import pytest
 
 from mrg_slam_tpu_torch import config as tconfig
 from mrg_slam_tpu_torch.pipeline import replay as treplay
 
 from test_torch_replay import CFG, TICK, frames  # noqa: F401 (a fixture)
+from test_torch_multirobot import one_thread  # noqa: F401 (a fixture)
 
 
 def test_replay_fused_matches_per_frame(frames):
@@ -39,13 +39,10 @@ def test_replay_fused_matches_per_frame(frames):
 
 
 def test_robot_refuses_floor_and_replay_fused_switches(frames, monkeypatch):
-    """Floor detection waits for item 12. With deskewing (fed by
-    `add_imu`) or an initial-guess front end, `replay_fused` runs the
-    per-frame `replay`, as the reference does (replay.py:145-152)."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        treplay.Robot(dataclasses.replace(
-            CFG, floor=tconfig.FloorDetectionConfig(
-                enable_floor_detection=True)), device="cpu")
+    """`Robot` with floor detection builds (item 12, once refused here).
+    With floor detection, deskewing (fed by `add_imu`) or an
+    initial-guess front end, `replay_fused` runs the per-frame `replay`,
+    as the reference does (replay.py:144-152)."""
     traj, fr = frames
     called = []
     orig = treplay.replay
@@ -63,3 +60,14 @@ def test_robot_refuses_floor_and_replay_fused_switches(frames, monkeypatch):
         CFG.odometry, enable_robot_odometry_init_guess=True))
     treplay.replay_fused(treplay.Robot(guess, device="cpu"), fr[:2])
     assert len(called) == 2
+    floor = treplay.Robot(dataclasses.replace(
+        CFG, floor=tconfig.FloorDetectionConfig(
+            enable_floor_detection=True, sensor_height=1.5,
+            floor_pts_thresh=20)), device="cpu")
+    assert floor.floor is not None
+    res = treplay.replay_fused(floor, fr[:2], tick_every=TICK)
+    assert len(called) == 3 and res.trajectory.shape == (2, 7)
+    # the detector's coefficients wait in the floor processor's queue or
+    # became plane edges
+    assert floor.slam.floor_processor.queue or \
+        floor.slam.db.graph.num_plane_edges

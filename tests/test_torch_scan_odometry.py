@@ -50,7 +50,7 @@ from mrg_slam_tpu_torch.ops.cloud import PointCloud
 from mrg_slam_tpu_torch.ops.covariance import GICPCloud
 from mrg_slam_tpu_torch.utils.metrics import ate_rmse
 
-from test_torch_multirobot import exact_sqdist
+from test_torch_multirobot import exact_sqdist, one_thread  # noqa: F401
 
 CAP = 512
 JCFG = JScanMatchingOdometryConfig(

@@ -49,7 +49,7 @@ from mrg_slam_tpu_torch.models.shared_graph import SharedGraphSlam
 from mrg_slam_tpu_torch.ops.cloud import PointCloud
 from mrg_slam_tpu_torch.utils import se3np
 
-from test_torch_backend import make_world
+from test_torch_backend import CAP, make_world
 from test_torch_multirobot import _same_map
 from test_torch_slice import JSLAM_NO_MARGINALS
 
@@ -332,8 +332,38 @@ def test_default_radius_removes_the_other_robots_points(world):
 @pytest.mark.parametrize("change", [
     dict(gps=dataclasses.replace(JSLAM_NO_MARGINALS.gps, enable_gps=True)),
     dict(enable_fill_first_cloud=True)])
-def test_shared_graph_refuses_the_processors(change):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        SharedGraphSlam(_tcfg(NAMES, **change), list(NAMES), device="cpu")
+def test_shared_graph_refuses_the_processors(world, change):
+    """Each view owns its processors, flushed over its own robot's
+    keyframes (item 12, once refused here): a GPS fix queued at alpha's
+    stamps becomes priors on alpha's keyframes only; filling fills each
+    robot's first keyframe. MrgSlam still refuses other robots (item
+    14)."""
+    from mrg_slam_tpu_torch.models.processors import GpsFix
+    group = SharedGraphSlam(_tcfg(NAMES, **change), list(NAMES),
+                            device="cpu")
+    a, b = (group.views[n] for n in NAMES)
+    assert a.gps_processor is not b.gps_processor
+    for i in range(4):
+        for k, n in enumerate(NAMES):
+            lo = WINDOWS[n][0]
+            p, m = world["clouds"][lo + i]
+            group.process_scan(n, i * 0.1 + k * 0.05,
+                               _odometry(world["traj"], [lo, lo + i], 3)[-1],
+                               _tcloud(p, m))
+        a.gps_processor.add_fix(GpsFix(i * 0.1, 48.0, 11.0 + 1e-5 * i,
+                                       500.0))
+    assert group.optimization_tick() is not None
+    g = group.db.graph
+    kfs = {n: group.robot_keyframes(n) for n in NAMES}
+    assert all(kfs.values())
+    if "gps" in change:
+        assert g._priors.n == len(kfs["alpha"])
+        assert set(g._priors.arrays["node_idx"][:g._priors.n]) == {
+            k.node_id for k in kfs["alpha"]}
+    else:
+        assert g._priors.capacity == 0
+        for n in NAMES:
+            first = [k for k in kfs[n] if k.first_keyframe]
+            assert len(first) == 1 and first[0].cloud.capacity > CAP
     with pytest.raises(NotImplementedError, match="item 14"):
         MrgSlam(_tcfg(NAMES), device="cpu")

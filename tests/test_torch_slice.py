@@ -34,6 +34,7 @@ from mrg_slam_tpu_torch.models.backend import MrgSlam
 from mrg_slam_tpu_torch.ops.cloud import PointCloud
 
 from test_torch_backend import CAP, FRAMES, JSLAM, make_world
+from test_torch_multirobot import one_thread  # noqa: F401 (a fixture)
 
 TICK_EVERY = 33
 # per-tick marginals off on both sides: tests/test_torch_graph.py holds
