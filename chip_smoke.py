@@ -167,6 +167,32 @@ REF_FLOOR = dict(ate_m=0.23544667759555968, rpe_m=0.040798407275734,
 FAMILY_NODES, FAMILY_ITERS = 256, 40
 REF_FAMILY = dict(dense=425.98223876953125, cg=425.9820556640625,
                   chain=425.9826354980469)
+# acceptance rows 4 (`4_two_robot_exchange`, 100 frames, 30 % overlap) and
+# 6 (`6_reversed_encounter`, 120 frames, 35 % overlap, bestla backwards)
+# at their width, not cut: `_base_cfg()` (8192 raw -> 1024 filtered
+# points) with the rows' exchange cadence, two robots in one process, a
+# SharedTick every 8 rounds. The JAX package's runs of the same frames on
+# the CPU (`python tools/exchange_reference.py`, 168 s on the CPU)
+REF_EXCHANGE = {
+    "4_two_robot_exchange": dict(
+        ate_m={"atlas": 0.39940590069644566, "bestla": 0.38915287500449264},
+        keyframes={"atlas": 19, "bestla": 19},
+        loops={"atlas": 5, "bestla": 5},
+        inter_robot_loops={"atlas": 0, "bestla": 0},
+        remote_keyframes={"atlas": 19, "bestla": 19},
+        sent_bytes={"atlas": 259076, "bestla": 259296},
+        received_bytes={"atlas": 259296, "bestla": 259076}),
+    "6_reversed_encounter": dict(
+        ate_m={"atlas": 0.04498500589468842, "bestla": 0.04452661159589868},
+        keyframes={"atlas": 24, "bestla": 24},
+        loops={"atlas": 31, "bestla": 31},
+        inter_robot_loops={"atlas": 21, "bestla": 21},
+        remote_keyframes={"atlas": 22, "bestla": 22},
+        sent_bytes={"atlas": 302588, "bestla": 302808},
+        received_bytes={"atlas": 302808, "bestla": 302588})}
+# moments against its plain version at the merged keyframes' prefetch
+# shape: the bar PERF.md's kernel table states for the per-frame shapes
+MOMENTS_EXCHANGE_TOL = 2.4e-4
 # bench.py's multi-robot section (run_multirobot_scaling, bench.py:277-475)
 # at its own width: build_world_and_scans(n_frames=160, laps=1.0)
 # (bench.py:71-81; 32768 raw points a scan, 4096 filtered), a fixed
@@ -1424,6 +1450,434 @@ def floor_phase(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# acceptance rows 4 and 6: two robots exchanging graphs
+# ---------------------------------------------------------------------------
+
+class Patched:
+    """Installs `attr` of `owner` as `make(original)` while entered."""
+
+    def __init__(self, owner, attr, make):
+        self.owner, self.attr = owner, attr
+        self.fn = getattr(owner, attr)
+        self.make = make
+
+    def __enter__(self):
+        setattr(self.owner, self.attr, self.make(self.fn))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.fn)
+
+
+class ExchangeLog:
+    """What one exchange row's run did, recorded by patches that pass
+    every call on: per SharedTick its wall, the nn and moments launches it
+    made and its shared stats; the host reads each exchange service call
+    made (`on_slam_pose_broadcast`, `handle_publish_graph`, as `sync` sees
+    them); the largest covariance pass (one PairRunner prefetch chunk)
+    that held merged remote keyframes, and how many remote keyframes were
+    prefetched; the largest pair bucket (via BucketRecorder)."""
+
+    def __init__(self, torch, sync):
+        from mrg_slam_tpu_torch.models.backend import MrgSlam
+        from mrg_slam_tpu_torch.models.coordinator import SharedTick
+        from mrg_slam_tpu_torch.models.pair_runner import PairRunner
+        from mrg_slam_tpu_torch.ops import nn_kernel, stats_kernel
+        from mrg_slam_tpu_torch.ops import registration as reg
+
+        self.ticks, self.service_reads = [], []
+        self.prefetch, self.remote_prefetched, self.owner = None, 0, None
+        self.buckets = BucketRecorder(reg)
+        nn, mom = nn_kernel.nn_cuda, stats_kernel.moments_cuda
+
+        def tick_all(fn):
+            def call(st, now=0.0):
+                n0, m0 = nn.launches, mom.launches
+                t0 = time.perf_counter()
+                out = fn(st, now)
+                stats = [x for x in out.values() if x is not None]
+                if stats:
+                    s0 = stats[0]
+                    self.ticks.append(dict(
+                        wall_ms=(time.perf_counter() - t0) * 1e3,
+                        loop_closure_ms=s0.loop_closure_us / 1e3,
+                        lm_ms=s0.lm_ms, marginals_ms=s0.marginals_ms,
+                        pair_rows=sum(r for r, _ in s0.pair_buckets),
+                        lm_iterations=max(x.iterations for x in stats),
+                        nn=nn.launches - n0, moments=mom.launches - m0))
+                return out
+            return call
+
+        def counted(fn):
+            def call(slam, *a, **kw):
+                n0 = sync.count()
+                out = fn(slam, *a, **kw)
+                self.service_reads.append(sync.count() - n0)
+                return out
+            return call
+
+        def tick_begin(fn):
+            def call(slam, now):
+                self.owner = slam.own_name
+                return fn(slam, now)
+            return call
+
+        def prefetch(fn):
+            def call(runner, kfs):
+                groups = {}
+                for k in kfs:
+                    if k.gicp is None and k.cloud.capacity > 0:
+                        groups.setdefault(k.cloud.capacity, []).append(k)
+                b = runner.PREFETCH_BUCKET
+                for g in groups.values():
+                    for chunk in (g[i:i + b] for i in range(0, len(g), b)):
+                        remote = sum(k.robot_name != self.owner
+                                     for k in chunk)
+                        self.remote_prefetched += remote
+                        if remote and (self.prefetch is None or len(chunk)
+                                       > self.prefetch[0].shape[0]):
+                            self.prefetch = (
+                                torch.stack([k.cloud.points for k in chunk]),
+                                torch.stack([k.cloud.mask for k in chunk]))
+                return fn(runner, kfs)
+            return call
+
+        self.patches = [Patched(SharedTick, "tick_all", tick_all),
+                        Patched(MrgSlam, "on_slam_pose_broadcast", counted),
+                        Patched(MrgSlam, "handle_publish_graph", counted),
+                        Patched(MrgSlam, "_tick_begin", tick_begin),
+                        Patched(PairRunner, "prefetch_batch", prefetch),
+                        self.buckets]
+
+    def __enter__(self):
+        for p in self.patches:
+            p.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for p in reversed(self.patches):
+            p.__exit__(*exc)
+
+
+def exchange_row(torch, name, run):
+    """One of rows 4 and 6 through the port's entry point, the kernels'
+    counts from 0 just before it -> (its metrics, its row dict, its
+    ExchangeLog): per robot ATE, keyframes, loops, inter-robot loops,
+    merged remote keyframes, graph bytes sent and received, frames/s;
+    the aggregate frames/s; per tick the loop-closure, LM and marginals
+    ms, pair rows, LM iterations and nn launches; host reads a frame with
+    the code lines that make the most; the kernels' launches."""
+    from mrg_slam_tpu_torch.ops import nn_kernel, stats_kernel
+    from mrg_slam_tpu_torch.ops import registration as reg
+
+    counters = (nn_kernel.nn_cuda, stats_kernel.moments_cuda,
+                stats_kernel.count_cuda)
+    for fn in counters:
+        fn.launches = 0
+    sync = SyncReads(torch)
+    with GnCounter(reg) as gn, ExchangeLog(torch, sync) as xlog, sync:
+        r = run()
+    n = sum(r["robot_frames"].values())
+    reads = sync.count()
+    keys = ("keyframes", "loops", "inter_robot_loops", "remote_keyframes",
+            "sent_bytes", "received_bytes", "robot_frames", "frames_per_s")
+    m = dict(ate_m=r["ate_rmse"], **{k: r[k] for k in keys},
+             frames_per_s_total=r["frames_per_s_total"], wall_s=r["wall_s"],
+             ticks=xlog.ticks, gn_iterations_per_frame=gn.iterations / n,
+             host_reads_per_frame=reads / n,
+             host_read_sources=[[w, c / n] for w, c in sync.top()],
+             service_calls=len(xlog.service_reads),
+             service_reads=int(sum(xlog.service_reads)),
+             remote_keyframes_prefetched=xlog.remote_prefetched,
+             launches=dict(zip(("nn", "moments", "count"),
+                               (fn.launches for fn in counters))),
+             ref=REF_EXCHANGE[name])
+    ref = m["ref"]
+    for rob in r["robot_frames"]:
+        log(f"# {name} {rob}: ATE {m['ate_m'][rob]:.4f} m (JAX CPU "
+            f"{ref['ate_m'][rob]:.4f}), keyframes {m['keyframes'][rob]} "
+            f"({ref['keyframes'][rob]}), loops {m['loops'][rob]} "
+            f"({ref['loops'][rob]}), inter-robot loops "
+            f"{m['inter_robot_loops'][rob]} ({ref['inter_robot_loops'][rob]})"
+            f", remote keyframes merged {m['remote_keyframes'][rob]} "
+            f"({ref['remote_keyframes'][rob]}), graph bytes sent "
+            f"{m['sent_bytes'][rob]} / received {m['received_bytes'][rob]} "
+            f"({ref['sent_bytes'][rob]} / {ref['received_bytes'][rob]}); "
+            f"{m['frames_per_s'][rob]:.2f} frames/s over "
+            f"{m['robot_frames'][rob]} frames")
+    for i, t in enumerate(xlog.ticks):
+        log(f"# {name} tick {i}: loop closure {t['loop_closure_ms']:.1f} ms"
+            f", LM {t['lm_ms']:.1f} ms, marginals {t['marginals_ms']:.1f} "
+            f"ms ({t['wall_ms']:.1f} ms in all), {t['pair_rows']} pair rows"
+            f", {t['lm_iterations']} LM iterations, {t['nn']} nn and "
+            f"{t['moments']} moments launches")
+    log(f"# {name}: {m['frames_per_s_total']:.2f} frames/s aggregate over "
+        f"{n} robot-frames ({m['wall_s']:.1f} s, the last tick outside); "
+        f"GN iterations {m['gn_iterations_per_frame']:.2f} and host reads "
+        f"{m['host_reads_per_frame']:.2f} a frame; {m['service_calls']} "
+        f"exchange service calls made {m['service_reads']} host reads; "
+        f"{xlog.remote_prefetched} merged keyframes prefetched; launches "
+        f"{m['launches']}; reads a frame by line: "
+        + ", ".join(f"{w} {c:.2f}" for w, c in m["host_read_sources"]))
+    return m, r, xlog
+
+
+def check_exchange(name, m):
+    """Row 4: every robot with a loop, loops within max(2, 0.2 ref) and
+    keyframes within 2 of ref's, ATE at most ref + MR_ATE_SPREAD (the
+    multi-robot run-to-run spread), a remote keyframe merged. Row 6: ATE
+    at most max(ref + 0.05 m, 1.2 ref), inter-robot loops at least one and
+    within max(3, 0.3 ref), keyframes within 2. Both: nn and moments
+    launched, the exchange services read nothing from the card."""
+    ref = m["ref"]
+    bad = []
+    for rob, ate in m["ate_m"].items():
+        r_ate, r_kf = ref["ate_m"][rob], ref["keyframes"][rob]
+        if abs(m["keyframes"][rob] - r_kf) > 2:
+            bad.append(f"{rob}: {m['keyframes'][rob]} keyframes, JAX CPU "
+                       f"{r_kf}")
+        if name.startswith("4_"):
+            lim = r_ate + MR_ATE_SPREAD
+            loops, r_loops = m["loops"][rob], ref["loops"][rob]
+            if not (loops >= 1 and abs(loops - r_loops)
+                    <= max(2, 0.2 * r_loops)):
+                bad.append(f"{rob}: {loops} loops, JAX CPU {r_loops}")
+        else:
+            lim = max(r_ate + 0.05, 1.2 * r_ate)
+            inter, r_inter = (m["inter_robot_loops"][rob],
+                              ref["inter_robot_loops"][rob])
+            if not (inter >= 1 and abs(inter - r_inter)
+                    <= max(3, 0.3 * r_inter)):
+                bad.append(f"{rob}: {inter} inter-robot loops, JAX CPU "
+                           f"{r_inter}")
+        if not ate <= lim:
+            bad.append(f"{rob}: ATE {ate:.4f} m > {lim:.4f}")
+    if name.startswith("4_") and not sum(m["remote_keyframes"].values()):
+        bad.append("no remote keyframe merged")
+    if m["launches"]["nn"] <= 0 or m["launches"]["moments"] <= 0:
+        bad.append(f"a kernel never launched: {m['launches']}")
+    if m["service_reads"]:
+        bad.append(f"the exchange services made {m['service_reads']} host "
+                   "reads")
+    if bad:
+        raise AssertionError(f"{name}: " + "; ".join(bad))
+
+
+def optimize_many_check(torch, graphs):
+    """Row 6's final graphs solved in one batched LM (graph/builder.
+    optimize_many), then each alone: chi2 within 1e-5 relative, and the
+    batch's host reads exactly one an LM iteration plus the packed read
+    (the snapshots' uploads, two a graph, not counted)."""
+    import copy
+    import inspect
+
+    from mrg_slam_tpu_torch.graph import builder
+
+    batch = [copy.deepcopy(g) for g in graphs]
+    alone = [copy.deepcopy(g) for g in graphs]
+    src, first = inspect.getsourcelines(builder._upload)
+    upload = range(first, first + len(src))
+    t0 = time.perf_counter()
+    with SyncReads(torch) as sync:
+        builder.optimize_many(batch)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    reads = [w for w in sync._reads()
+             if not (w.filename == builder.__file__ and w.lineno in upload)]
+    t0 = time.perf_counter()
+    for g in alone:
+        g.optimize()
+    alone_ms = (time.perf_counter() - t0) * 1e3
+    iters = max(g.last_iterations for g in batch)
+    rel = [abs(a.chi2_final - b.chi2_final) / max(b.chi2_final, 1e-12)
+           for a, b in zip(batch, alone)]
+    out = dict(batch_ms=batch_ms, alone_ms=alone_ms, lm_iterations=iters,
+               reads=len(reads), chi2=[g.chi2_final for g in batch],
+               chi2_alone=[g.chi2_final for g in alone], chi2_rel=rel,
+               nodes=[g.num_nodes for g in batch],
+               iterations=[g.last_iterations for g in batch],
+               iterations_alone=[g.last_iterations for g in alone])
+    log(f"# optimize_many on row 6's final graphs ({out['nodes']} nodes): "
+        f"{batch_ms:.1f} ms batched against {alone_ms:.1f} ms one by one; "
+        f"chi2 {out['chi2']} against {out['chi2_alone']} (rel {rel}); LM "
+        f"iterations {out['iterations']} ({out['iterations_alone']} alone); "
+        f"{len(reads)} host reads besides the uploads for {iters} LM "
+        "iterations")
+    if not all(x <= 1e-5 for x in rel):
+        raise AssertionError(f"optimize_many: chi2 off the per-graph solves "
+                             f"by {rel}")
+    if len(reads) != iters + 1:
+        raise AssertionError(
+            f"optimize_many: {len(reads)} host reads for {iters} LM "
+            "iterations and the packed read: "
+            f"{[(w.filename, w.lineno) for w in reads]}")
+    return out
+
+
+def exchange_kernel_rows(torch, bucket, prefetch, launches):
+    """nn at the largest merged pair bucket of rows 4 and 6 (its rows'
+    first sweep; also every 4th row frozen and the stride-2 coarse rows),
+    bitwise to nn_plain; moments at the largest covariance pass that held
+    merged remote keyframes (radius 1.0, make_source's), within the
+    float32 summation bound and MOMENTS_EXCHANGE_TOL; each timed as the
+    other rows, with its launches over rows 4 and 6."""
+    from mrg_slam_tpu_torch.ops import nn_kernel as nk
+    from mrg_slam_tpu_torch.ops import stats_kernel as sk
+    from mrg_slam_tpu_torch.ops.cloud import pad_invalid
+    from mrg_slam_tpu_torch.pipeline import baseline_runs as bl
+    from mrg_slam_tpu_torch.utils import se3
+
+    where = "rows 4 and 6"
+    tgts, srcs, inits = bucket
+    dev = tgts[0].points.device
+    init = torch.from_numpy(inits).to(dev)
+    p_src = se3.pose_apply(init[:, None, :], torch.stack(
+        [c.points for c in srcs])).contiguous()
+    p_sm = torch.stack([c.mask for c in srcs]).contiguous()
+    t_m = torch.stack([c.mask for c in tgts]).contiguous()
+    p_tgt = pad_invalid(torch.stack([c.points for c in tgts]),
+                        t_m).contiguous()
+    frozen = p_sm.clone()
+    frozen[::4] = False
+    check_nn(torch, nk, p_src, p_tgt, "exchange pair bucket, frozen",
+             frozen, t_m)
+    coarse = [x[:, ::2].contiguous() for x in (p_src, p_tgt, p_sm, t_m)]
+    check_nn(torch, nk, coarse[0], coarse[1], "exchange pair bucket, coarse",
+             coarse[2], coarse[3])
+    err = check_nn(torch, nk, p_src, p_tgt, "exchange pair bucket", p_sm,
+                   t_m)
+    log(f"# nn at the largest merged pair bucket of {where}: "
+        f"{p_src.shape[0]} rows x {p_src.shape[1]} lanes, real sources "
+        f"{int(p_sm.sum(-1).min())}-{int(p_sm.sum(-1).max())}: bitwise == "
+        "plain on every lane, also with every 4th row frozen and on the "
+        "stride-2 coarse rows")
+    real = [(a[ma], b[mb]) for a, b, ma, mb in zip(p_src, p_tgt, p_sm, t_m)]
+
+    def lib_nn():
+        return [torch.cdist(a[None], b[None],
+                            compute_mode="donot_use_mm_for_euclid_dist"
+                            ).min(dim=-1) for a, b in real]
+
+    pairs = float((p_sm.sum(-1).double() * t_m.sum(-1).double()).sum())
+    rows = [timed_row(
+        torch, "nn_pairs_exchange", "mrg_slam_tpu_torch/csrc/nn.cu",
+        "mrg_slam_tpu/ops/pallas_nn.py:48",
+        lambda: nk.nn_cuda(p_src, p_tgt, p_sm, t_m),
+        lambda: nk.nn_plain(p_src, p_tgt, p_sm, t_m), lib_nn,
+        launches["nn"], err,
+        *bound(pairs, 9, 0, (p_src.numel() + p_tgt.numel()) * 4
+               + p_src.shape[0] * p_src.shape[1] * 12), where=where)]
+
+    pts, mask = (x.contiguous() for x in prefetch)
+    r2 = sk.radius_sq(bl._base_cfg().slam.registration.reg_covariance_radius)
+    err, inside = check_moments(torch, sk, pts, r2, "exchange prefetch",
+                                mask)
+    log(f"# moments at the merged keyframes' covariance pass: "
+        f"{pts.shape[0]} x {pts.shape[1]} lanes, max |err| {err:.3g} "
+        f"(bar {MOMENTS_EXCHANGE_TOL})")
+    if not err <= MOMENTS_EXCHANGE_TOL:
+        raise AssertionError(f"moments exchange prefetch: {err} > "
+                             f"{MOMENTS_EXCHANGE_TOL}")
+    feats = torch.cat([torch.ones_like(pts[..., :1]), pts,
+                       *(pts[..., a:a + 1] * pts[..., b:b + 1]
+                         for a, b in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2),
+                                      (2, 2)))], dim=-1)
+    pts_real = [p[m] for p, m in zip(pts, mask)]
+    feats_real = [f[m] for f, m in zip(feats, mask)]
+    radius = float(bl._base_cfg().slam.registration.reg_covariance_radius)
+
+    def lib_moments():
+        return [(torch.cdist(p, p, compute_mode="donot_use_mm_for_euclid_dist")
+                 <= radius).float() @ f for p, f in zip(pts_real, feats_real)]
+
+    n_real = mask.sum(-1).double()
+    rows.append(timed_row(
+        torch, "moments_prefetch_exchange",
+        "mrg_slam_tpu_torch/csrc/radius_stats.cu",
+        "mrg_slam_tpu/ops/pallas_stats.py:93",
+        lambda: sk.moments_cuda(pts, pts, r2, mask, mask),
+        lambda: sk.moments_plain(pts, pts, r2, mask, mask), lib_moments,
+        launches["moments"], err,
+        *bound(float((n_real * n_real).sum()), 9, 16 * inside,
+               pts.numel() * 4 + pts.shape[0] * pts.shape[1] * 40),
+        where=where))
+    return rows
+
+
+def exchange_phase(torch):
+    """Acceptance rows 4 and 6 at their width through the port's
+    `baseline_runs` (`replay_multirobot` with SharedTick), each held to
+    the JAX package's CPU run of the same frames; row 6 again for
+    determinism (keyframe poses bit for bit) and with serial ticks
+    (`coordinate=False`: keyframes equal, loops within 1, trajectories
+    within 0.1 m); `optimize_many` on row 6's final graphs; then nn and
+    moments at this path's shapes."""
+    from mrg_slam_tpu_torch.pipeline import baseline_runs as bl
+
+    t0 = time.perf_counter()
+    out, launches = {}, {"nn": 0, "moments": 0}
+    bucket, prefetch = None, None
+    rows6 = None
+    for name, run in (("4_two_robot_exchange", bl.config4_two_robot),
+                      ("6_reversed_encounter",
+                       bl.config6_reversed_encounter)):
+        m, r, xlog = exchange_row(torch, name, run)
+        check_exchange(name, m)
+        out[name] = m
+        for k in launches:
+            launches[k] += m["launches"][k]
+        big = xlog.buckets.largest
+        if big is not None and (bucket is None or len(big[0])
+                                > len(bucket[0])):
+            bucket = big
+        if xlog.prefetch is not None and (
+                prefetch is None
+                or xlog.prefetch[0].shape[0] > prefetch[0].shape[0]):
+            prefetch = xlog.prefetch
+        if name.startswith("6_"):
+            rows6 = r
+    if prefetch is None:
+        raise AssertionError("no merged remote keyframe was prefetched")
+
+    again = bl.config6_reversed_encounter()
+    for rob, kf in rows6["keyframe_trajectory"].items():
+        kf2 = again["keyframe_trajectory"][rob]
+        if kf2.shape != kf.shape or not (kf2.view(np.uint32)
+                                         == kf.view(np.uint32)).all():
+            raise AssertionError(f"row 6 rerun: {rob}'s keyframe poses not "
+                                 "bitwise identical")
+    log("# row 6 rerun: both robots' keyframe poses bitwise identical")
+
+    serial = bl.config6_reversed_encounter(coordinate=False)
+    cmp = {}
+    for rob, kf in rows6["keyframe_trajectory"].items():
+        kf_s = serial["keyframe_trajectory"][rob]
+        l_c, l_s = rows6["loops"][rob], serial["loops"][rob]
+        ok = kf_s.shape == kf.shape
+        d = float(np.abs(kf_s[:, :3] - kf[:, :3]).max()) if ok else None
+        cmp[rob] = dict(keyframes=(len(kf), len(kf_s)), loops=(l_c, l_s),
+                        max_pose_diff_m=d, ate_serial_m=serial["ate_rmse"][rob],
+                        frames_per_s_serial=serial["frames_per_s"][rob])
+        log(f"# row 6 {rob}, SharedTick against serial ticks: keyframes "
+            f"{len(kf)} / {len(kf_s)}, loops {l_c} / {l_s}, keyframe poses "
+            f"within {d} m; serial ATE {serial['ate_rmse'][rob]:.4f} m, "
+            f"{serial['frames_per_s'][rob]:.2f} frames/s")
+        if not (ok and abs(l_c - l_s) <= 1 and d < 0.1):
+            raise AssertionError(f"row 6 {rob}: SharedTick differs from "
+                                 f"serial ticks: {cmp[rob]}")
+    log(f"# row 6 aggregate frames/s: SharedTick "
+        f"{rows6['frames_per_s_total']:.2f}, serial ticks "
+        f"{serial['frames_per_s_total']:.2f}")
+    om = optimize_many_check(torch, list(rows6["graphs"].values()))
+    rows = exchange_kernel_rows(torch, bucket, prefetch, launches)
+    phase_s = time.perf_counter() - t0
+    log(f"# exchange phase: {phase_s:.1f} s")
+    return dict(rows=out, serial=cmp,
+                serial_frames_per_s_total=serial["frames_per_s_total"],
+                optimize_many=om, launches=launches,
+                phase_s=phase_s), rows
+
+
 class FrontEndInputs(NamedTuple):
     traj: np.ndarray   # (SLAM_FRAMES, 7) ground-truth poses
     raw: object        # (SLAM_FRAMES, RAW, 3) float32 scans on the card
@@ -2487,6 +2941,8 @@ def main():
     replay_m, frame_rows = replay_phase(torch)
     rows.extend(frame_rows)
     floor_m = floor_phase(torch, dev)
+    exchange_m, exchange_rows = exchange_phase(torch)
+    rows.extend(exchange_rows)
     log(json.dumps({"frames_per_s": fps,
                     "pass1_frames_per_s": FRAMES / sum(run1.block_walls),
                     "ate_m": ate, "ref_ate_m": REF_ATE_M,
@@ -2498,6 +2954,7 @@ def main():
                     "solvers": solver_m,
                     "replay": replay_m,
                     "floor": floor_m,
+                    "exchange": exchange_m,
                     "build_s": native.build_seconds}))
     log(f"# smoke run: {time.perf_counter() - t_start:.1f} s, kernel builds "
         "included")

@@ -9,6 +9,9 @@ this module needs nothing of the JAX package:
     carry = carry_from_numpy({k: np.asarray(v)
                               for k, v in jax_carry._asdict().items()})
     graph = graph_from_numpy(jax.tree.map(np.asarray, jax_graph))
+
+A delta graph of the exchange crosses the same way: `graph_msg_from_numpy`
+takes a GraphMsg of the JAX package whose clouds were fetched as numpy.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import torch
 from . import config
 from .graph.types import EDGE_TABLES, PoseGraphData
 from .models.odometry_fused import OdomCarry
+from .ops.cloud import PointCloud
+from .parallel import messages
 from .runtime import DeviceLike, resolve_device
 
 _CONFIGS = tuple(v for v in vars(config).values()
@@ -73,3 +78,40 @@ def carry_from_numpy(d, device: DeviceLike = None) -> OdomCarry:
         f: torch.from_numpy(np.array(d[f])).to(
             dev, _CARRY_DTYPES.get(f, torch.float32))
         for f in OdomCarry._fields})
+
+
+def graph_msg_from_numpy(msg, device: DeviceLike = None
+                         ) -> messages.GraphMsg:
+    """The port's GraphMsg from the JAX package's (the same fields, its
+    keyframe clouds' points and masks as numpy arrays, or QuantizedClouds
+    of numpy arrays): clouds on the device, poses and information as
+    float32 numpy."""
+    dev = resolve_device(device)
+
+    def cloud(c):
+        if hasattr(c, "offsets"):
+            return messages.QuantizedCloud(
+                offsets=np.asarray(c.offsets), origin=np.asarray(c.origin),
+                scale=float(c.scale), capacity=int(c.capacity))
+        return PointCloud(_tensor(c.points, dev),
+                          torch.from_numpy(np.array(c.mask, bool)).to(dev))
+
+    kfs = [messages.KeyFrameMsg(
+        robot_name=k.robot_name, uuid=k.uuid, slam_uuid=k.slam_uuid,
+        stamp=float(k.stamp), odom_counter=int(k.odom_counter),
+        first_keyframe=bool(k.first_keyframe),
+        static_keyframe=bool(k.static_keyframe),
+        accum_distance=float(k.accum_distance),
+        estimate=np.asarray(k.estimate, np.float32), cloud=cloud(k.cloud))
+        for k in msg.keyframes]
+    edges = [messages.EdgeMsg(
+        type=e.type, uuid=e.uuid, from_uuid=e.from_uuid, to_uuid=e.to_uuid,
+        relative_pose=np.asarray(e.relative_pose, np.float32),
+        information=np.asarray(e.information, np.float32))
+        for e in msg.edges]
+    return messages.GraphMsg(
+        robot_name=msg.robot_name,
+        latest_keyframe_uuid=msg.latest_keyframe_uuid,
+        latest_keyframe_odom=np.asarray(msg.latest_keyframe_odom,
+                                        np.float32),
+        keyframes=kfs, edges=edges, wire_nbytes=int(msg.wire_nbytes))

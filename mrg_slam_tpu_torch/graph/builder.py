@@ -14,8 +14,9 @@ package's builder to 8 planes, 1024 priors, 2048 SE3-plane edges and 8
 of each plane-plane kind), so a pose-only graph built directly pays
 nothing for them; models/graph_database.py sizes them from the enabled
 processors, as the JAX package's does, and every table doubles on
-overflow. `optimize_many`, the batched solve of co-hosted robots'
-graphs, waits for ROADMAP.md queue 1 item 14.
+overflow. `optimize_many` solves several graphs in one batched LM (the
+robots of models/coordinator.SharedTick), their capacities levelled up
+to the largest store's by `GraphSLAM.reserve`.
 """
 
 from __future__ import annotations
@@ -201,13 +202,37 @@ class GraphSLAM:
         return self._pl_edges.n
 
     # -- nodes ------------------------------------------------------------
-    def add_se3_node(self, pose, fixed: bool = False) -> int:
-        if self._n_nodes >= self._poses.shape[0]:
-            new_cap = max(1, self._poses.shape[0] * 2)
+    def _grow_nodes(self, new_cap: int) -> None:
+        if new_cap > self._poses.shape[0]:
             self._poses = _grow_rows(self._poses, self._n_nodes, _POSE_ID,
                                      new_cap)
             self._node_fixed = _grow_rows(self._node_fixed, self._n_nodes,
                                           False, new_cap)
+
+    def _grow_planes(self, new_cap: int) -> None:
+        if new_cap > self._planes.shape[0]:
+            self._planes = _grow_rows(self._planes, self._n_planes,
+                                      _PLANE_ID, new_cap)
+            self._plane_fixed = _grow_rows(self._plane_fixed,
+                                           self._n_planes, False, new_cap)
+
+    def reserve(self, **caps: int) -> None:
+        """Grow the stores to at least the given capacities (keys as in
+        `cap`): `optimize_many` levels co-hosted graphs up to one shape
+        after one of them grew. The padding is masked out and takes no
+        part in a solve."""
+        self._grow_nodes(caps.get("nodes", 0))
+        self._grow_planes(caps.get("planes", 0))
+        for key, table in (("edges", self._se3), ("priors", self._priors),
+                           ("plane_edges", self._pl_edges),
+                           ("plane_priors", self._pl_priors),
+                           ("plane_plane", self._pl_pl)):
+            if caps.get(key, 0) > table.capacity:
+                table.grow(caps[key])
+
+    def add_se3_node(self, pose, fixed: bool = False) -> int:
+        if self._n_nodes >= self._poses.shape[0]:
+            self._grow_nodes(max(1, self._poses.shape[0] * 2))
         i = self._n_nodes
         self._poses[i] = np.asarray(pose, np.float32).reshape(7)
         self._node_fixed[i] = fixed
@@ -217,11 +242,7 @@ class GraphSLAM:
     def add_plane_node(self, coeffs, fixed: bool = False) -> int:
         """A plane node (n, d), n.x + d = 0, its normal normalized."""
         if self._n_planes >= self._planes.shape[0]:
-            new_cap = max(1, self._planes.shape[0] * 2)
-            self._planes = _grow_rows(self._planes, self._n_planes,
-                                      _PLANE_ID, new_cap)
-            self._plane_fixed = _grow_rows(self._plane_fixed,
-                                           self._n_planes, False, new_cap)
+            self._grow_planes(max(1, self._planes.shape[0] * 2))
         c = np.asarray(coeffs, np.float32).reshape(4)
         c = c / max(np.linalg.norm(c[:3]), 1e-12)
         i = self._n_planes
@@ -481,3 +502,78 @@ class GraphSLAM:
         the block-Jacobi approximation."""
         cov = solve.marginals(self.snapshot(), exact=exact)
         return cov[: self._n_nodes].cpu().numpy()
+
+
+def optimize_many(graphs) -> None:
+    """Solve several graphs in one batched LM and one packed read: the
+    tick of robots that share a card (models/coordinator.SharedTick),
+    the counterpart of the JAX package's builder.optimize_many.
+
+    The stores are levelled up to the largest capacities (`reserve`), so
+    a graph that grew does not split the batch; then every snapshot goes
+    through `solve.optimize_many` (the dense LM, one host read an
+    iteration for the whole batch), the per-tick marginals of every graph
+    are computed, and one read brings back every graph's poses, planes,
+    chi2, iterations and marginals, written back as `GraphSLAM.optimize`
+    writes them. The graphs solve one by one with `optimize` when there is
+    one graph, when their OptimizerConfigs differ, or when the backend is
+    not dense (the chain backend classifies each graph's couplings on the
+    host, and a cg step reads the card every 16 CG iterations of each
+    graph)."""
+    graphs = list(graphs)
+    if not graphs:
+        return
+    cfg = graphs[0].cfg
+    backend = solve.resolve_backend(
+        cfg.solver_backend, max(g.cap["nodes"] for g in graphs),
+        max(g.cap["planes"] for g in graphs), cfg.auto_dense_max_dofs)
+    if (len(graphs) == 1 or any(g.cfg != cfg for g in graphs[1:])
+            or backend != "dense"):
+        for g in graphs:
+            g.optimize()
+        return
+    caps = {k: max(g.cap[k] for g in graphs) for k in graphs[0].cap}
+    for g in graphs:
+        g.reserve(**caps)
+    t0 = time.perf_counter()
+    snaps = [g.snapshot() for g in graphs]
+    if cfg.chordal_init:
+        snaps = [s._replace(poses=chordal_init(s)) if g.num_nodes else s
+                 for g, s in zip(graphs, snaps)]
+    res = solve.optimize_many(snaps, cfg)
+    t1 = time.perf_counter()
+    R = len(graphs)
+    mode = solve.resolve_marginals_mode(cfg.per_tick_marginals,
+                                        caps["nodes"], caps["planes"])
+    parts = [res.poses.reshape(R, -1), res.planes.reshape(R, -1),
+             torch.stack([res.chi2_initial, res.chi2_final,
+                          res.iterations.to(torch.float32)], dim=1)]
+    if mode != "none" and any(g.num_nodes for g in graphs):
+        opts = [s._replace(poses=res.poses[r], planes=res.planes[r])
+                for r, s in enumerate(snaps)]
+        if mode == "cg":
+            cov = torch.zeros((R, caps["nodes"], 6, 6),
+                              device=res.poses.device)
+            for r, (g, o) in enumerate(zip(graphs, opts)):
+                if g.num_nodes:
+                    cov[r, :g.num_nodes] = solve.marginals_selected(
+                        g._live(o), torch.arange(g.num_nodes,
+                                                 device=g.device))
+        else:
+            cov = solve.marginals_many(opts, exact=(mode == "exact"))
+        parts.append(cov.reshape(R, -1))
+    flat = torch.cat(parts, dim=1).cpu().numpy()  # the one packed read
+    t2 = time.perf_counter()
+    npose, nplane = res.poses[0].numel(), res.planes[0].numel()
+    for g, row in zip(graphs, flat):
+        n, p = g.num_nodes, g._n_planes
+        g._poses[:n] = row[:npose].reshape(-1, 7)[:n]
+        g._planes[:p] = row[npose:npose + nplane].reshape(-1, 4)[:p]
+        o = npose + nplane
+        g.chi2_initial = float(row[o])
+        g.chi2_final = float(row[o + 1])
+        g.last_iterations = int(row[o + 2])
+        if len(parts) == 4:
+            g.last_marginals = row[o + 3:].reshape(-1, 6, 6)[:n]
+        g.last_lm_ms = (t1 - t0) * 1e3
+        g.last_marginals_ms = (t2 - t1) * 1e3

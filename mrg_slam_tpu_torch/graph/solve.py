@@ -19,7 +19,8 @@ Robust kernels enter as IRLS weights at every linearization; fixed nodes
 
 The JAX package runs the LM iterations, and the CG iterations inside
 each, in `lax.while_loop`s; here they are Python loops. The LM reads one
-flag a iteration; a CG loop keeps going for every system whose residual
+flag a iteration (`optimize_many`, the dense LM over R graphs of one
+shape side by side, one flag for the whole batch); a CG loop keeps going for every system whose residual
 is still above its tolerance, freezes the others where they stopped, and
 reads whether any is left every CG_CHECK_EVERY iterations, so it returns
 what a loop that stopped at once returns. Vectors over the node pool are
@@ -39,7 +40,7 @@ left out when the graph has no plane pool.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -405,33 +406,38 @@ def assemble_dense(g: PoseGraphData, lin: LinearizedGraph):
 
 
 def _cholesky(A: torch.Tensor):
-    """Lower Cholesky factor without the singularity check's host sync;
-    a matrix that is not positive definite gives a NaN factor, as JAX's
-    cho_factor does."""
+    """Lower Cholesky factor of A (..., D, D) without the singularity
+    check's host sync; a matrix that is not positive definite gives a NaN
+    factor, as JAX's cho_factor does."""
     L, info = torch.linalg.cholesky_ex(A)
-    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    return torch.where(info[..., None, None] == 0, L,
+                       torch.full_like(L, float("nan")))
 
 
 def dense_delta(H, b, free, lam):
-    """Damped Newton step -> (x, predicted chi2 reduction).
+    """Damped Newton step -> (x, predicted chi2 reduction), for one system
+    (H (D, D), b and free (D,), lam ()) or a batch of them (leading
+    axes on every argument, lam (R,)).
 
     f32 Cholesky of a raw pose-graph Hessian (condition 1e6 and more)
     loses enough precision to stall LM; symmetric Jacobi equilibration and
     one step of iterative refinement recover the step (graph/solve.py of
     the JAX package, which factors the upper triangle; the lower factor
     here is the same matrix, rounded differently)."""
-    diag = torch.diagonal(H)
-    Hl = H + torch.diag((lam * diag + 1e-6) * free)
-    s = torch.rsqrt(torch.clamp(torch.diagonal(Hl), min=1e-12))
-    Hs = Hl * s[:, None] * s[None, :]
-    bs = (b * s)[:, None]
+    lam = lam[..., None]
+    diag = torch.diagonal(H, dim1=-2, dim2=-1)
+    Hl = H + torch.diag_embed((lam * diag + 1e-6) * free)
+    s = torch.rsqrt(torch.clamp(torch.diagonal(Hl, dim1=-2, dim2=-1),
+                                min=1e-12))
+    Hs = Hl * s[..., :, None] * s[..., None, :]
+    bs = (b * s)[..., None]
     L = _cholesky(Hs)
     y = torch.cholesky_solve(bs, L)
     y = y + torch.cholesky_solve(bs - Hs @ y, L)
-    x = y[:, 0] * s
+    x = y[..., 0] * s
     # predicted chi2 reduction of the damped step (g2o's LM rho
     # denominator): dx^T (lam D dx + b)
-    return x, torch.sum(x * (lam * diag * x + b))
+    return x, torch.sum(x * (lam * diag * x + b), dim=-1)
 
 
 def _retract_all(g: PoseGraphData, dx_n: torch.Tensor,
@@ -478,6 +484,47 @@ def _chain_K(n: int) -> int:
     while k > 2 and n % k:
         k //= 2
     return k
+
+
+def _lm_schedule(chi2, chi2_new, pred, lam, nu, is_lm: bool,
+                 rel_tol: float, done=None):
+    """One LM step's verdict -> (accept, next lam, next nu, done): the
+    step is taken when it does not raise chi2; Nielsen's gain-ratio
+    schedule moves lam (LM solver types only); the solve is done when an
+    accepted step improves chi2 by less than `rel_tol` relative, or lam
+    passes 1e8. With `done` ((R,) bool, the batched LM) a graph already
+    done is frozen: it takes no step and keeps its lam and nu, as the JAX
+    package's vmapped body holds it (solve.py:600-700)."""
+    accept = chi2_new <= chi2
+    if done is not None:
+        accept = accept & ~done
+    lam_next, nu_next = lam, nu
+    if is_lm:
+        rho = (chi2 - chi2_new) / torch.clamp(pred, min=1e-30)
+        shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+        lam_next = torch.where(accept, torch.clamp(lam * shrink, min=1e-12),
+                               torch.clamp(lam * nu, max=1e10))
+        nu_next = torch.where(accept, torch.full_like(nu, 2.0),
+                              torch.clamp(nu * 2.0, max=1e8))
+        if done is not None:
+            lam_next = torch.where(done, lam, lam_next)
+            nu_next = torch.where(done, nu, nu_next)
+    rel_improve = (chi2 - chi2_new) / torch.clamp(chi2, min=1e-12)
+    done_now = (accept & (rel_improve < rel_tol)) | (lam_next > 1e8)
+    if done is not None:
+        done_now = done_now | done
+    return accept, lam_next, nu_next, done_now
+
+
+def _take(accept, g_new: PoseGraphData, lin_new: LinearizedGraph,
+          g: PoseGraphData, lin: LinearizedGraph):
+    """The trial point and its linearization where `accept` (a 0-dim
+    bool), else the current ones."""
+    g = g._replace(poses=torch.where(accept, g_new.poses, g.poses),
+                   planes=torch.where(accept, g_new.planes, g.planes))
+    lin = LinearizedGraph(*(a if a is None else torch.where(accept, a, c)
+                            for a, c in zip(lin_new, lin)))
+    return g, lin
 
 
 def optimize(g: PoseGraphData, cfg: OptimizerConfig,
@@ -527,26 +574,10 @@ def optimize(g: PoseGraphData, cfg: OptimizerConfig,
         g_new = _retract_all(g, dx_n, dx_p)
         lin_new = linearize(g_new)
         chi2_new = lin_new.chi2
-        accept = chi2_new <= chi2
-        if is_lm:
-            rho = (chi2 - chi2_new) / torch.clamp(pred, min=1e-30)
-            shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-            lam_next = torch.where(accept, torch.clamp(lam * shrink,
-                                                       min=1e-12),
-                                   torch.clamp(lam * nu, max=1e10))
-            nu = torch.where(accept, torch.full_like(nu, 2.0),
-                             torch.clamp(nu * 2.0, max=1e8))
-        else:
-            lam_next = lam
-        g = g._replace(poses=torch.where(accept, g_new.poses, g.poses),
-                       planes=torch.where(accept, g_new.planes, g.planes))
-        lin = LinearizedGraph(*(a if a is None else torch.where(accept, a, c)
-                                for a, c in zip(lin_new, lin)))
-        rel_improve = (chi2 - chi2_new) / torch.clamp(chi2, min=1e-12)
-        done = ((accept & (rel_improve < cfg.chi2_rel_tol))
-                | (lam_next > 1e8))
+        accept, lam, nu, done = _lm_schedule(chi2, chi2_new, pred, lam, nu,
+                                             is_lm, cfg.chi2_rel_tol)
+        g, lin = _take(accept, g_new, lin_new, g, lin)
         chi2 = torch.where(accept, chi2_new, chi2)
-        lam = lam_next
         it += 1
         # the one host read of the iteration
         stop, bad = torch.stack([done, failed]).tolist()
@@ -560,6 +591,60 @@ def optimize(g: PoseGraphData, cfg: OptimizerConfig,
                           chi2_initial=chi2_0, chi2_final=chi2,
                           iterations=it, lambda_final=lam,
                           cg_iterations=cg_iters)
+
+
+def optimize_many(gs: Sequence[PoseGraphData],
+                  cfg: OptimizerConfig) -> OptimizeResult:
+    """The dense LM of `optimize` over R graphs of one shape side by side
+    (the counterpart of the JAX package's `_optimize_many_split`, a
+    vmapped `optimize`) -> an OptimizeResult with a leading graph axis:
+    poses (R, N, 7), planes (R, P, 4), chi2, lam and iterations (R,).
+
+    lam, nu, chi2 and done are (R,) tensors. Each iteration linearizes and
+    assembles each graph's Hessian, factors the (R, D, D) stack with one
+    batched Cholesky, and decides every graph's step, lam and stop at
+    once; `done` is sticky and freezes its graph (no step, lam and nu
+    kept), so a graph that stops early holds its result while the others
+    iterate, and each graph ends where its own `optimize` ends. The batch
+    reads one flag an iteration, whether every graph is done."""
+    if resolve_backend(cfg.solver_backend, gs[0].n_nodes, gs[0].n_planes,
+                       cfg.auto_dense_max_dofs) != "dense":
+        raise ValueError("optimize_many runs the dense backend; solve "
+                         "graphs of the other backends one by one")
+    gs = list(gs)
+    R, n, p = len(gs), gs[0].n_nodes, gs[0].n_planes
+    dev = gs[0].poses.device
+    is_lm = cfg.g2o_solver_type.startswith("lm")
+    lins = [linearize(g) for g in gs]
+    chi2_0 = chi2 = torch.stack([lin.chi2 for lin in lins])
+    lam = torch.full((R,), cfg.lm_initial_lambda if is_lm else 1e-9,
+                     device=dev)
+    nu = torch.full_like(lam, 2.0)
+    done = torch.zeros(R, dtype=torch.bool, device=dev)
+    iters = torch.zeros(R, dtype=torch.int64, device=dev)
+    for _ in range(cfg.g2o_solver_num_iterations):
+        systems = [assemble_dense(g, lin) for g, lin in zip(gs, lins)]
+        x, pred = dense_delta(*(torch.stack(t) for t in zip(*systems)), lam)
+        trials = [_retract_all(g, x[r, :6 * n].view(n, 6),
+                               x[r, 6 * n:].view(p, 3))
+                  for r, g in enumerate(gs)]
+        lins_new = [linearize(t) for t in trials]
+        chi2_new = torch.stack([lin.chi2 for lin in lins_new])
+        accept, lam, nu, done_now = _lm_schedule(
+            chi2, chi2_new, pred, lam, nu, is_lm, cfg.chi2_rel_tol, done)
+        gs, lins = map(list, zip(*(
+            _take(accept[r], trials[r], lins_new[r], gs[r], lins[r])
+            for r in range(R))))
+        chi2 = torch.where(accept, chi2_new, chi2)
+        iters = iters + (~done).long()
+        done = done_now
+        if bool(done.all()):  # the one host read of the iteration
+            break
+    return OptimizeResult(poses=torch.stack([g.poses for g in gs]),
+                          planes=torch.stack([g.planes for g in gs]),
+                          chi2_initial=chi2_0, chi2_final=chi2,
+                          iterations=iters, lambda_final=lam,
+                          cg_iterations=torch.zeros_like(iters))
 
 
 def _inv_sym(blocks: torch.Tensor, ridge: float) -> torch.Tensor:
@@ -588,6 +673,25 @@ def marginals(g: PoseGraphData, exact: bool = True) -> torch.Tensor:
     else:
         cov = _inv_sym(block_diagonal(g, lin)[0], 1e-6)
     return cov * fn[:, :, None]
+
+
+def marginals_many(gs: Sequence[PoseGraphData],
+                   exact: bool = True) -> torch.Tensor:
+    """`marginals` of R graphs of one shape -> (R, N, 6, 6) (the JAX
+    package's `marginals_many`): each graph's Hessian assembled, then one
+    batched Cholesky inverse of the (R, D, D) stack; exact=False inverts
+    each graph's node diagonal blocks."""
+    if not exact:
+        return torch.stack([marginals(g, exact=False) for g in gs])
+    n = gs[0].n_nodes
+    H = torch.stack([assemble_dense(g, linearize(g))[0] for g in gs])
+    fn = torch.stack([_free_masks(g)[0] for g in gs])
+    eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+    Hinv = torch.cholesky_solve(eye.expand(H.shape),
+                                _cholesky(H + 1e-9 * eye))
+    cov = Hinv[:, :6 * n, :6 * n].reshape(-1, n, 6, n, 6).diagonal(
+        dim1=1, dim2=3).permute(0, 3, 1, 2)
+    return cov * fn[..., None]
 
 
 def marginals_selected(g: PoseGraphData, node_idx: torch.Tensor,

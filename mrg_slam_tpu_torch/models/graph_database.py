@@ -1,25 +1,31 @@
 """GraphDatabase: the keyframe and edge store of one robot, or of R
-co-hosted robots.
+co-hosted robots, and the uuid merge of other robots' graphs.
 
 Counterpart of the JAX package's models/graph_database.py
-(src/mrg_slam/graph_database.cpp) without its exchange and persistence
-merges: it owns the keyframes and edges (uuid-keyed), the odometry
-keyframe queue, one anchor node per robot chain, and loop insertion; the
-pose graph is the GraphSLAM builder on the device. One store can hold
-several robots' chains (models/shared_graph.py), each with its own
-previous keyframe, anchor and keyframe counter; the singular
-`prev_robot_keyframe`, `anchor_kf`, `anchor_edge` and
-`odom_keyframe_counter` are the own robot's views of that state. The
-other three ingest queues (static keyframes, other robots' graphs, loaded
-graphs) exist, and their flushes return False while they are empty;
-anything queued there raises NotImplementedError, since their merges wait
-for ROADMAP.md queue 1 items 14 (the graph exchange) and 16 (persistence).
+(src/mrg_slam/graph_database.cpp) without its persistence merges: it owns
+the keyframes and edges (uuid-keyed), the odometry keyframe queue, the
+queue of other robots' delta graphs and their merge (`flush_graph_queue`),
+one anchor node per robot chain, and loop insertion; the pose graph is
+the GraphSLAM builder on the device. One store can hold several robots'
+chains (models/shared_graph.py), each with its own previous keyframe,
+anchor and keyframe counter; the singular `prev_robot_keyframe`,
+`anchor_kf`, `anchor_edge` and `odom_keyframe_counter` are the own
+robot's views of that state. The static-keyframe and loaded-graph queues
+exist, and their flushes return False while they are empty; anything
+queued there raises NotImplementedError, since their merges wait for
+ROADMAP.md queue 1 item 16 (persistence).
+
+`queue_lock` guards every queue's append and every flush's swap: the
+optimization tick may run on a worker thread while scans come in
+(`MrgSlam.optimization_tick_async`), as the reference's optimization
+timer runs beside its cloud callback (mrg_slam_component.cpp:805-817).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import pathlib
+import threading
 from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
@@ -79,8 +85,9 @@ class GraphDatabase:
 
         self.keyframe_queue: List[KeyFrame] = []
         self.static_keyframe_queue: List[KeyFrame] = []
-        self.graph_queue: List[object] = []   # other robots' graphs
+        self.graph_queue: List[object] = []   # other robots' GraphMsgs
         self.loaded_graph_queue: List[object] = []
+        self.queue_lock = threading.Lock()
 
         # per-robot chain state: latest keyframe, (anchor keyframe, anchor
         # edge) and keyframe counter, by robot name
@@ -88,6 +95,9 @@ class GraphDatabase:
         self._anchors: Dict[str, Tuple[KeyFrame, Edge]] = {}
         self._odom_counters: Dict[str, int] = {}
         self._save_counter = 0  # save_keyframe_poses file numbering
+        # the latest keyframe of each other robot whose graph was merged:
+        # name -> (uuid, its odometry pose)
+        self.others_last_kf: Dict[str, Tuple[str, np.ndarray]] = {}
 
     # -- the own robot's views of the per-chain state --------------------
     @property
@@ -129,8 +139,15 @@ class GraphDatabase:
                       slam_uuid=slam_uuid or self.slam_uuid,
                       odom_counter=counter)
         self._odom_counters[name] = counter + 1
-        self.keyframe_queue.append(kf)
+        with self.queue_lock:
+            self.keyframe_queue.append(kf)
         return kf
+
+    def add_graph_msg(self, msg) -> None:
+        """Queue another robot's delta graph (a GraphMsg) for the next
+        flush."""
+        with self.queue_lock:
+            self.graph_queue.append(msg)
 
     # ------------------------------------------------------------------
     # flush: odometry keyframes
@@ -149,11 +166,13 @@ class GraphDatabase:
         every edge fitness in its pair program and then calls
         `finalize_edges`. Without it, each edge's fitness pass runs here.
         """
-        if not self.keyframe_queue:
-            return []
-        n = min(len(self.keyframe_queue), self.cfg.max_keyframes_per_update)
-        batch = self.keyframe_queue[:n]
-        del self.keyframe_queue[:n]
+        with self.queue_lock:
+            if not self.keyframe_queue:
+                return []
+            n = min(len(self.keyframe_queue),
+                    self.cfg.max_keyframes_per_update)
+            batch = self.keyframe_queue[:n]
+            del self.keyframe_queue[:n]
         pending: List[Edge] = []
         const_info = self.cfg.inf_matrix.use_const_inf_matrix
         for kf in batch:
@@ -253,27 +272,92 @@ class GraphDatabase:
         self.edge_pairs.add((edge.from_uuid, edge.to_uuid))
 
     # ------------------------------------------------------------------
+    # flush: other robots' delta graphs (the uuid merge)
+    # ------------------------------------------------------------------
+    def flush_graph_queue(self, loop_manager=None) -> bool:
+        """graph_database.cpp:237: merge other robots' delta graphs.
+
+        A new remote keyframe becomes a node at the sender's estimate;
+        edges re-link by uuid, and one already known (`edge_uuids`) or
+        whose ends are not merged yet is skipped; remote anchors are
+        skipped (each robot anchors itself, and the anchor keyframe is
+        not sent). A loop edge takes the loop kernel and is registered
+        with `loop_manager`, so the local loop search keeps its rate
+        limit; an odometry edge links its ends' `prev_edge` and
+        `next_edge`. Returns whether anything was queued."""
+        with self.queue_lock:
+            if not self.graph_queue:
+                return False
+            msgs, self.graph_queue = self.graph_queue, []
+        lc = self.cfg.loop
+        for msg in msgs:
+            for kmsg in msg.keyframes:
+                if kmsg.uuid in self.uuid_keyframe_map:
+                    continue
+                kf = KeyFrame(
+                    robot_name=kmsg.robot_name, stamp=kmsg.stamp,
+                    odom=np.asarray(kmsg.estimate, np.float32),
+                    accum_distance=kmsg.accum_distance, cloud=kmsg.cloud,
+                    uuid=kmsg.uuid, slam_uuid=kmsg.slam_uuid,
+                    odom_counter=kmsg.odom_counter,
+                    first_keyframe=kmsg.first_keyframe,
+                    static_keyframe=kmsg.static_keyframe)
+                kf.node_id = self.graph.add_se3_node(kf.odom)
+                self.uuid_keyframe_map[kf.uuid] = kf
+                self.new_keyframes.append(kf)
+            for emsg in msg.edges:
+                if emsg.uuid in self.edge_uuids:
+                    continue
+                kf_from = self.uuid_keyframe_map.get(emsg.from_uuid)
+                kf_to = self.uuid_keyframe_map.get(emsg.to_uuid)
+                if (kf_from is None or kf_to is None
+                        or emsg.type == EDGE_ANCHOR):
+                    continue  # an end not merged yet, or a remote anchor
+                loop = emsg.type == EDGE_LOOP
+                edge = Edge(type=emsg.type, from_uuid=emsg.from_uuid,
+                            to_uuid=emsg.to_uuid,
+                            relative_pose=np.asarray(emsg.relative_pose,
+                                                     np.float32),
+                            information=np.asarray(emsg.information,
+                                                   np.float32).reshape(6, 6),
+                            uuid=emsg.uuid,
+                            from_readable=kf_from.readable_id,
+                            to_readable=kf_to.readable_id)
+                edge.edge_id = self.graph.add_se3_edge(
+                    kf_from.node_id, kf_to.node_id, edge.relative_pose,
+                    edge.information,
+                    kernel=(lc.loop_closure_edge_robust_kernel if loop
+                            else "NONE"),
+                    kernel_delta=lc.loop_closure_edge_robust_kernel_size)
+                self._register_edge(edge)
+                if edge.type == EDGE_ODOM:
+                    kf_from.prev_edge = edge
+                    kf_to.next_edge = edge
+                if loop and loop_manager is not None:
+                    loop_manager.add_loop(Loop(
+                        key1=kf_from, key2=kf_to,
+                        relative_pose=edge.relative_pose))
+            self.others_last_kf[msg.robot_name] = (
+                msg.latest_keyframe_uuid,
+                np.asarray(msg.latest_keyframe_odom))
+        return True
+
+    # ------------------------------------------------------------------
     # flush: the queues whose merges are not ported yet
     # ------------------------------------------------------------------
-    @staticmethod
-    def _refuse(queue: list, what: str, item: str) -> bool:
-        if queue:
-            raise NotImplementedError(
-                f"{what} are not ported yet: they wait for ROADMAP.md "
-                f"queue 1 item {item}")
+    def _refuse(self, queue: list, what: str) -> bool:
+        with self.queue_lock:
+            if queue:
+                raise NotImplementedError(
+                    f"{what} are not ported yet: they wait for ROADMAP.md "
+                    "queue 1 item 16 (persistence and tooling)")
         return False
 
     def flush_static_keyframe_queue(self) -> bool:
-        return self._refuse(self.static_keyframe_queue, "static keyframes",
-                            "16 (persistence and tooling)")
-
-    def flush_graph_queue(self) -> bool:
-        return self._refuse(self.graph_queue, "other robots' graphs",
-                            "14 (the graph exchange)")
+        return self._refuse(self.static_keyframe_queue, "static keyframes")
 
     def flush_loaded_graph(self) -> bool:
-        return self._refuse(self.loaded_graph_queue, "loaded graphs",
-                            "16 (persistence and tooling)")
+        return self._refuse(self.loaded_graph_queue, "loaded graphs")
 
     # ------------------------------------------------------------------
     # loops

@@ -8,14 +8,16 @@ world, with ground truth for ATE. Ported here:
   2. full single-robot graph SLAM (keyframes + loops + optimization),
      through `replay` or `replay_fused`;
   3. floor-augmented SLAM (RANSAC ground plane and EdgeSE3Plane);
+  4. two robots exchanging delta graphs over overlapping windows;
+  6. two robots meeting head on (one window played backwards);
   7. full SLAM through moving occluders;
 
 the ring pose graph, the workload of the solver section and of row 5
 (`5_distributed_mesh_solve`), and a ring that carries every prior and
 plane family (`family_graph_spec`, numpy, for either package's
-GraphSLAM). Rows 4 and 6 wait for ROADMAP.md queue 1 item 14. Each row
-runs on the card unless `device` says otherwise, and returns the JAX
-package's keys plus the keyframes.
+GraphSLAM). Each row runs on the card unless `device` says otherwise,
+and returns the JAX package's keys plus the keyframes (rows 4 and 6: the
+exchange's counts too).
 """
 
 from __future__ import annotations
@@ -39,15 +41,15 @@ from ..ops.prefilter import prefilter
 from ..runtime import DeviceLike, resolve_device
 from ..utils import se3, se3np
 from ..utils.metrics import ate_rmse, rpe_rmse
-from .replay import Robot, replay, replay_fused
+from .replay import Robot, replay, replay_fused, replay_multirobot
 
 
 def _base_cfg() -> EngineConfig:
     """The acceptance rows' configuration (baseline_runs.py:30-60 of the
     JAX package): 8192 raw -> 1024 filtered points, SMALL_GICP with radius
-    covariances, 2 m keyframes, a dense LM. One robot name: the graph
-    exchange is not ported (item 14), and with no other robot on the wire
-    the JAX package's ("atlas", "bestla") gates nothing (backend.py:353)."""
+    covariances, 2 m keyframes, a dense LM, and the default robot names
+    ("atlas", "bestla"), which gate nothing while no other robot is on the
+    wire (rows 1, 2, 3, 7)."""
     reg = RegistrationConfig(reg_transformation_epsilon=1e-3,
                              reg_maximum_iterations=32,
                              reg_correspondence_randomness=10,
@@ -59,8 +61,7 @@ def _base_cfg() -> EngineConfig:
                                   outlier_removal_method="NONE"),
         odometry=ScanMatchingOdometryConfig(keyframe_delta_translation=2.0,
                                             registration=reg),
-        slam=SlamConfig(multi_robot_names=("atlas",),
-                        keyframe_delta_trans=2.0, capacity_keyframes=128,
+        slam=SlamConfig(keyframe_delta_trans=2.0, capacity_keyframes=128,
                         capacity_edges=512, capacity_keyframe_points=1024,
                         registration=reg,
                         optimizer=OptimizerConfig(
@@ -204,6 +205,144 @@ def config7_dynamic_world(n_frames=110, device: DeviceLike = None) -> Dict:
     row = _slam_row("7_dynamic_objects", frames, traj, False, device)
     row["dynamic_objects"] = 6
     return row
+
+
+def _exchange_cfg() -> EngineConfig:
+    """Rows 4 and 6: `_base_cfg()` with a faster exchange cadence, so that
+    merges land while the overlap is fresh (baseline_runs.py:187-193 of
+    the JAX package)."""
+    cfg = _base_cfg()
+    return dataclasses.replace(cfg, slam=dataclasses.replace(
+        cfg.slam, exchange=dataclasses.replace(
+            cfg.slam.exchange, graph_request_min_time_delay=0.5,
+            graph_request_min_accum_dist=1.0)))
+
+
+def _init_pose(p: np.ndarray) -> tuple:
+    """(x, y, z, yaw, pitch, roll) of a planar pose7 (wxyz)."""
+    yaw = 2.0 * np.arctan2(p[6], p[3])
+    return (float(p[0]), float(p[1]), float(p[2]), float(yaw), 0.0, 0.0)
+
+
+def _exchange_row(name: str, robots: Dict[str, Robot], results,
+                  ates: Dict, n_frames: int) -> Dict:
+    """Rows 4 and 6's dict: the JAX package's keys (ATE per robot, its
+    loops, frames) and per robot its keyframes, loops, inter-robot loops,
+    merged remote keyframes, graph bytes sent and received, frames run,
+    frames/s, tick stats, optimized keyframe poses and pose graph."""
+    out = {"config": name, "ate_rmse": ates, "frames": n_frames}
+    per = {k: {} for k in ("loops", "inter_robot_loops", "keyframes",
+                           "remote_keyframes", "sent_bytes",
+                           "received_bytes", "robot_frames", "frames_per_s",
+                           "ticks", "keyframe_trajectory", "graphs")}
+    for rname, robot in robots.items():
+        slam, db = robot.slam, robot.slam.db
+        loops = [e for e in db.edges if e.type == "loop"]
+        robot_of = {u: k.robot_name for u, k in db.uuid_keyframe_map.items()}
+        per["loops"][rname] = len(loops)
+        per["inter_robot_loops"][rname] = sum(
+            robot_of[e.from_uuid] != robot_of[e.to_uuid] for e in loops)
+        per["keyframes"][rname] = len(db.own_keyframes())
+        per["remote_keyframes"][rname] = sum(
+            k.robot_name != rname and k.odom_counter >= 0
+            for k in db.keyframes + db.new_keyframes)
+        per["sent_bytes"][rname] = int(sum(slam.sent_graph_bytes))
+        per["received_bytes"][rname] = int(sum(slam.received_graph_bytes))
+        per["robot_frames"][rname] = len(results[rname].stamps)
+        per["frames_per_s"][rname] = results[rname].frames_per_s
+        per["ticks"][rname] = slam.tick_stats
+        per["keyframe_trajectory"][rname] = results[rname].\
+            keyframe_trajectory
+        per["graphs"][rname] = db.graph
+    out.update(per)
+    wall = next(iter(results.values())).wall_s
+    out["frames_per_s_total"] = sum(per["robot_frames"].values()) / max(
+        wall, 1e-9)
+    out["wall_s"] = wall
+    return out
+
+
+def config4_two_robot(n_frames=100, coordinate: bool = True,
+                      device: DeviceLike = None) -> Dict:
+    """Row 4: two robots over overlapping windows (30 %) of one lap of a
+    14 m circle, a tick every 8 rounds, exchanging delta graphs
+    (baseline_runs.py:177-227 of the JAX package, its start pose and
+    ground-truth offset of bestla included). ATE of each robot's
+    optimized keyframes against the truth at frames spread over its
+    window, as the JAX package evaluates them."""
+    from .multirobot_split import run_multirobot_split
+
+    world = _world()
+    traj = circle_trajectory(n_frames, radius=14.0, laps=1.0)
+    frames = [(i * 0.1, world.scan(p, seed=i)) for i, p in enumerate(traj)]
+    start_b = int(n_frames / 2 * (1 - 0.3))
+    results, robots = run_multirobot_split(
+        _exchange_cfg(), frames, ["atlas", "bestla"],
+        init_poses={"atlas": _init_pose(traj[0]),
+                    "bestla": _init_pose(traj[start_b])},
+        overlap_fraction=0.3, tick_every=8, coordinate=coordinate,
+        device=device)
+    ates = {}
+    offsets = {"atlas": 0, "bestla": start_b}
+    for name, res in results.items():
+        kf = res.keyframe_trajectory
+        if not len(kf):
+            ates[name] = None
+            continue
+        gt_idx = [min(offsets[name] + j, n_frames - 1)
+                  for j in np.linspace(0, len(res.trajectory) - 1,
+                                       len(kf)).astype(int)]
+        ates[name] = ate_rmse(kf[:, :3], traj[gt_idx][:, :3])
+    return _exchange_row("4_two_robot_exchange", robots, results, ates,
+                         n_frames)
+
+
+def config6_reversed_encounter(n_frames=120, coordinate: bool = True,
+                               device: DeviceLike = None) -> Dict:
+    """Row 6: two robots on one circle in opposite directions (bestla
+    plays its window backwards), so they drive toward each other and the
+    overlap forces inter-robot loops from opposing approaches
+    (baseline_runs.py:230-289 of the JAX package; the reference's
+    kitti_multirobot_reversed_processor.py). bestla's first frame is its
+    window's last capture, where its start pose puts it; its keyframes
+    are held to the truth through the reversed index."""
+    from .multirobot_split import split_frames, split_windows
+
+    world = _world()
+    traj = circle_trajectory(n_frames, radius=14.0, laps=1.0)
+    frames = [(i * 0.1, world.scan(p, seed=i)) for i, p in enumerate(traj)]
+    overlap = 0.35
+    windows = split_windows(n_frames, 2, overlap)
+    per_robot = split_frames(frames, 2, overlap, reversed_robots=(1,))
+    names = ["atlas", "bestla"]
+    cfg = _exchange_cfg()
+    init_poses = {"atlas": _init_pose(traj[windows[0][0]]),
+                  "bestla": _init_pose(traj[windows[1][1] - 1])}
+    robots = {}
+    for name in names:
+        slam_cfg = dataclasses.replace(cfg.slam, own_name=name,
+                                       multi_robot_names=tuple(names),
+                                       init_pose=init_poses[name])
+        robots[name] = Robot(dataclasses.replace(cfg, slam=slam_cfg),
+                             device=device)
+    results = replay_multirobot(robots, dict(zip(names, per_robot)),
+                                tick_every=8, coordinate=coordinate)
+    ates = {}
+    for name, (s, e) in zip(names, windows):
+        own = sorted(robots[name].slam.db.own_keyframes(),
+                     key=lambda k: k.stamp)
+        if not own:
+            ates[name] = None
+            continue
+        est = results[name].keyframe_trajectory
+        idx = []
+        for k in own:
+            j = int(round(k.stamp / 0.1)) - s
+            idx.append(e - 1 - j if name == "bestla" else s + j)
+        ates[name] = ate_rmse(est[:, :3],
+                              traj[np.clip(idx, 0, n_frames - 1)][:, :3])
+    return _exchange_row("6_reversed_encounter", robots, results, ates,
+                         n_frames)
 
 
 def build_ring_graph(n_nodes=256, capacity_nodes=None, capacity_edges=None,

@@ -1,22 +1,21 @@
-"""Dataset replay: one robot's stack (prefilter -> scan-matching odometry
--> back end) driven over a frame source, deterministically.
+"""Dataset replay: one or more robots' stacks (prefilter -> scan-matching
+odometry -> back end) driven over frame sources, deterministically.
 
-Counterpart of the single-robot part of the JAX package's
-pipeline/replay.py, the no-ROS equivalent of the reference's
-python_scripts/. As the reference's kitti and nebula processors gate
-playback on SlamStatus (kitti_multirobot_processor.py:95-99), the
-optimization tick runs synchronously every `tick_every` frames, so a run
-repeats. Frame sources are iterables of (stamp, (N, 3) numpy scan), such
-as the synthetic world's scans.
-
-Not ported yet: `replay_multirobot` (ROADMAP.md queue 1 item 14).
+Counterpart of the JAX package's pipeline/replay.py, the no-ROS
+equivalent of the reference's python_scripts/. As the reference's kitti
+and nebula processors gate playback on SlamStatus
+(kitti_multirobot_processor.py:95-99), the optimization tick runs
+synchronously every `tick_every` frames, so a run repeats. Frame sources
+are iterables of (stamp, (N, 3) numpy scan), such as the synthetic
+world's scans. `replay_multirobot` runs several robots in one process
+with the graph exchange between them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -206,6 +205,74 @@ def replay_fused(robot: Robot,
         robot.slam.optimization_tick(now=float(stamps[-1]))
     return _result(robot, len(frames), time.perf_counter() - t0, gt_xyz,
                    tum_path)
+
+
+def replay_multirobot(robots: Dict[str, Robot],
+                      frame_sources: Dict[str, List[Tuple[float,
+                                                          np.ndarray]]],
+                      tick_every: int = 30,
+                      coordinate: bool = True) -> Dict[str, ReplayResult]:
+    """In-process multi-robot replay with the full graph exchange.
+
+    Each robot steps one frame a round, in lock step, and its odom
+    broadcast goes to every other robot; every `tick_every` rounds every
+    robot ticks, then sends its slam-pose broadcast, which may make a
+    peer pull its delta graph (the service call is a function call: the
+    peer's `handle_publish_graph` answers at once, and the requester
+    merges the graph in its next tick).
+
+    With `coordinate` (the default) and more than one robot, the robots
+    tick through models/coordinator.SharedTick: one pair program and one
+    batched LM for all of them; robots whose registration configs or
+    keyframe capacities differ tick one by one. The final ticks stay
+    outside the timed window, as the JAX package keeps them
+    (replay.py:287-289)."""
+    from ..models.coordinator import SharedTick
+
+    t0 = time.perf_counter()
+    names = list(robots)
+    steps = max(len(v) for v in frame_sources.values())
+    s0 = robots[names[0]].cfg.slam
+    ticker = None
+    if coordinate and len(names) > 1 and all(
+            robots[n].cfg.slam.registration == s0.registration
+            and (robots[n].cfg.slam.capacity_keyframe_points
+                 == s0.capacity_keyframe_points) for n in names[1:]):
+        ticker = SharedTick([robots[n].slam for n in names])
+
+    def tick_all(now: float) -> None:
+        if ticker is not None:
+            ticker.tick_all(now=now)
+        else:
+            for name in names:
+                robots[name].slam.optimization_tick(now=now)
+
+    def request(peer_name: str, req):
+        return robots[peer_name].slam.handle_publish_graph(req)
+
+    for i in range(steps):
+        for name in names:
+            frames = frame_sources[name]
+            if i >= len(frames):
+                continue
+            _, bc = robots[name].step(*frames[i])
+            for other in names:
+                if other != name:
+                    robots[other].slam.on_odom_broadcast(bc)
+        if (i + 1) % tick_every == 0:
+            tick_all(i * 0.1)
+            for name in names:
+                sp = robots[name].slam.slam_pose_broadcast(i * 0.1)
+                if sp is None:
+                    continue
+                for other in names:
+                    if other != name:
+                        robots[other].slam.on_slam_pose_broadcast(
+                            sp, now=i * 0.1, request_fn=request)
+    wall = time.perf_counter() - t0
+    tick_all(steps * 0.1)
+    return {name: _result(robots[name], len(robots[name].stamps), wall,
+                          None, None) for name in names}
 
 
 def run_synthetic_demo(n_frames: int = 60, verbose: bool = True,

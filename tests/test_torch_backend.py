@@ -336,18 +336,15 @@ def test_slam_configs_round_trip():
     (dict(floor_coeffs=jconfig.FloorCoeffsConfig(enable_floor_coeffs=True)),
      "floor"),
     (dict(enable_fill_first_cloud=True), "fill"),
-    (dict(multi_robot_names=("atlas", "bestla")), "item 14")])
+    (dict(multi_robot_names=("atlas", "bestla")), "others")])
 def test_unported_features_raise(world, change, item):
-    """Other robots in multi_robot_names still raise (the exchange, item
-    14). The sensor processors and first-cloud filling are ported: MrgSlam
-    takes them, and a tick over six frames (three keyframes) adds their
-    edges, or the filled first cloud."""
+    """The sensor processors, first-cloud filling and other robots in
+    multi_robot_names (the exchange, once refused here) are ported:
+    MrgSlam takes them, and a tick over six frames (three keyframes) adds
+    the processors' edges, or the filled first cloud; with another robot
+    named and none on the wire, the tick is the one-robot tick."""
     cfg = config_from_fields(dataclasses.asdict(
         dataclasses.replace(JSLAM, **change)))
-    if item == "item 14":
-        with pytest.raises(NotImplementedError, match=item):
-            MrgSlam(cfg, device="cpu")
-        return
     from mrg_slam_tpu_torch.models.floor_detection import FloorCoeffs
     from mrg_slam_tpu_torch.models.processors import GpsFix, ImuSample
     slam = MrgSlam(cfg, device="cpu")
@@ -368,22 +365,31 @@ def test_unported_features_raise(world, change, item):
     kfs = len(slam.db.own_keyframes())
     assert kfs == 3
     want = dict(gps=(kfs, 0, 0), imu=(2 * kfs, 0, 0), floor=(0, kfs, 1),
-                fill=(0, 0, 0))[item]
+                fill=(0, 0, 0), others=(0, 0, 0))[item]
     assert (g._priors.n, g.num_plane_edges, len(g.planes)) == want
     first = slam.db.own_keyframes()[0]
     assert (first.cloud.capacity > CAP) == (item == "fill")
 
 
 def test_unported_queues_raise_only_when_used():
+    """The static-keyframe and loaded-graph queues raise once used (item
+    16); the other robots' graph queue (the exchange, once refused here)
+    merges: a delta graph without keyframes records the sender's latest
+    keyframe."""
+    from mrg_slam_tpu_torch.parallel.messages import GraphMsg
     slam = MrgSlam(SLAM, device="cpu")
     assert slam.optimization_tick() is None  # nothing queued, nothing done
     for queue, item in (("static_keyframe_queue", "item 16"),
-                        ("graph_queue", "item 14"),
                         ("loaded_graph_queue", "item 16")):
         getattr(slam.db, queue).append(object())
         with pytest.raises(NotImplementedError, match=item):
             slam.optimization_tick()
         getattr(slam.db, queue).clear()
+    slam.db.add_graph_msg(GraphMsg("bestla", "u", se3np.pose_identity(),
+                                   [], []))
+    assert slam.optimization_tick() is not None
+    assert not slam.db.graph_queue
+    assert slam.db.others_last_kf["bestla"][0] == "u"
 
 
 @pytest.mark.parametrize("reciprocal", [False, True],

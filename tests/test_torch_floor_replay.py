@@ -7,8 +7,8 @@ The port's floor detector is fed the JAX package's RANSAC triplets
 (test_torch_floor.JaxTriplets replays its key stream), and the JAX
 package's nearest neighbours run with exact differences (ROADMAP.md §3
 B1); per-tick marginals are off on both sides (tests/test_torch_graph.py
-and tests/test_torch_plane_edges.py hold them), and one robot name
-(the port's MrgSlam refuses others, item 14).
+and tests/test_torch_plane_edges.py hold them); the row's own robot
+names, which gate nothing with no other robot on the wire.
 
 Gates: the same keyframes and plane edges; ATE within 0.01 m of the JAX
 package's (float32 solves in two libraries, whose covariances differ by
@@ -36,10 +36,10 @@ FRAMES, TICK = 30, 20
 
 def _jcfg():
     """Row 3's configuration (the JAX package's config3_floor_augmented),
-    one robot, no per-tick marginals."""
+    no per-tick marginals."""
     cfg = jbl._base_cfg()
     slam = dataclasses.replace(
-        cfg.slam, multi_robot_names=("atlas",),
+        cfg.slam,
         optimizer=JOptimizerConfig(solver_backend="dense",
                                    g2o_solver_num_iterations=64,
                                    per_tick_marginals="none"),

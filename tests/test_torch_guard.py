@@ -36,8 +36,8 @@ print("NAMES", sorted(n for n in sys.modules
                       if n.startswith("mrg_slam_tpu_torch")))
 """
 
-# the back end's, the co-hosting's, the replay's and the floor and
-# sensor processors' modules, which the walk above must reach
+# the back end's, the co-hosting's, the replay's, the floor and sensor
+# processors' and the exchange's modules, which the walk above must reach
 _BACK_END = ("config", "convert", "utils.se3np", "ops.registration",
              "ops.fitness", "graph.types", "graph.robust", "graph.edges",
              "graph.solve", "graph.builder", "models.keyframe",
@@ -49,7 +49,8 @@ _BACK_END = ("config", "convert", "utils.se3np", "ops.registration",
              "pipeline.baseline_runs", "models.odometry", "pipeline.replay",
              "utils.tum", "utils.geodesy", "utils.nmea", "ops.ransac",
              "ops.ground_fill", "models.floor_detection",
-             "models.processors")
+             "models.processors", "models.coordinator",
+             "pipeline.multirobot_split")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -60,7 +61,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     loaded = int(re.search(r"LOADED (\d+)", out.stdout).group(1))
-    assert loaded >= 55  # every module of the package was imported
+    assert loaded >= 57  # every module of the package was imported
     names = out.stdout.split("NAMES", 1)[1]
     for m in _BACK_END:
         assert f"'mrg_slam_tpu_torch.{m}'" in names, m
@@ -72,7 +73,7 @@ _IMPORT = re.compile(
 
 def test_port_sources_name_neither_jax_nor_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 56
+    assert len(files) >= 58
     for m in _BACK_END:
         assert PORT / (m.replace(".", "/") + ".py") in files, m
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"

@@ -336,8 +336,8 @@ def test_shared_graph_refuses_the_processors(world, change):
     """Each view owns its processors, flushed over its own robot's
     keyframes (item 12, once refused here): a GPS fix queued at alpha's
     stamps becomes priors on alpha's keyframes only; filling fills each
-    robot's first keyframe. MrgSlam still refuses other robots (item
-    14)."""
+    robot's first keyframe. MrgSlam takes other robots too (the
+    exchange, once refused here)."""
     from mrg_slam_tpu_torch.models.processors import GpsFix
     group = SharedGraphSlam(_tcfg(NAMES, **change), list(NAMES),
                             device="cpu")
@@ -365,5 +365,5 @@ def test_shared_graph_refuses_the_processors(world, change):
         for n in NAMES:
             first = [k for k in kfs[n] if k.first_keyframe]
             assert len(first) == 1 and first[0].cloud.capacity > CAP
-    with pytest.raises(NotImplementedError, match="item 14"):
-        MrgSlam(_tcfg(NAMES), device="cpu")
+    slam = MrgSlam(_tcfg(NAMES), device="cpu")
+    assert slam.cfg.multi_robot_names == NAMES and not slam.others_odom2map
