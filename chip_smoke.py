@@ -88,7 +88,33 @@ drives two paths at full width on bench.py's production world:
   solved by the dense, cg and chain backends (40 LM iterations, chi2
   held to the JAX package's and dense against chain within 1e-3, each
   timed), and its marginals with the plane pool held to the float64
-  inverse of each path's own system.
+  inverse of each path's own system;
+- acceptance rows 4 and 6 at their width, two robots exchanging delta
+  graphs through `replay_multirobot` with SharedTick (the exchange
+  phase): per robot ATE, loops, inter-robot loops, keyframes, merged
+  keyframes and graph bytes held to `tools/exchange_reference.py`; row 6
+  rerun bitwise and with serial ticks; `optimize_many` on its final
+  graphs; nn and moments at the merged pair buckets and prefetches;
+- the launch path (the launch phase): session 1 through `python -m
+  mrg_slam_tpu_torch.launch --dataset rosbag`, in process, from a bag of
+  the first LAUNCH_FRAMES frames of the full-SLAM world at bench's
+  production width, with bench's configs as a YAML in the reference's
+  layout and LAUNCH_OVERRIDES as `param:=value` tokens, per frame; it
+  checks every output file (map.pcd holds summary["map_points"] points)
+  and prints frames/s, keyframes, loops, the keyframe ATE, map points,
+  bag-decode ms and host reads a frame. Its graph directory is then
+  loaded, flushed without optimizing and saved again on the card, and
+  `keyframes/` and `edges/` must be byte-identical. Session 2, a fresh
+  `Robot` with its init pose at frame LAUNCH_FRAMES's true pose, loads
+  that directory and replays the frames up to SLAM_FRAMES: merged
+  keyframes, loops to loaded keyframes, ATE. Then the two-topic fleet bag
+  of tests/test_rosbag_and_launch.py through `run_fleet_from_bag` (per
+  robot keyframes, loops, inter-robot loops, ATE), the CLI's --robots on
+  it (its output contract) and the CLI on tests/data/kitti_mini. Each
+  number is held to `tools/launch_reference.py`'s (REF_LAUNCH); count at
+  one frame of 8192 lanes, moments there and at the loaded keyframes'
+  covariance pass, and nn at session 2's largest pair bucket are held to
+  their plain versions and timed.
 
 Any failed check raises. The last line of standard output is {"ok": true,
 "device": {...}}; the line before it lists every kernel with its
@@ -193,6 +219,41 @@ REF_EXCHANGE = {
 # moments against its plain version at the merged keyframes' prefetch
 # shape: the bar PERF.md's kernel table states for the per-frame shapes
 MOMENTS_EXCHANGE_TOL = 2.4e-4
+# at the launch path's 8192-lane shapes the real points reach X ~ 35 m,
+# and cov = M2/n - mean mean^T cancels down from X^2, so two summation
+# orders part by a few float32 steps of X^2 (4 of them, 4.9e-4, at
+# X = 34.9 m on one frame, PERF.md §6): those rows are held to
+# MOMENTS_ULPS steps of X^2 besides the summation bound of check_moments
+MOMENTS_ULPS = 8
+# the launch phase: session 1 through the CLI (`python -m
+# mrg_slam_tpu_torch.launch --dataset rosbag`) from a bag of the first
+# LAUNCH_FRAMES frames of the full-SLAM world, with bench's configs as a
+# YAML in the reference's layout and LAUNCH_OVERRIDES on the command line;
+# session 2, a fresh stack that loads session 1's graph and replays
+# frames LAUNCH_FRAMES..SLAM_FRAMES-1; then the fleet bag of
+# tests/test_rosbag_and_launch.py (row 4's width, frames 0-47 for atlas
+# and 32-79 for bestla) through `run_fleet_from_bag`
+LAUNCH_FRAMES, LAUNCH_TICK, LAUNCH_TOPIC = 200, 32, "/velodyne_points"
+LAUNCH_OVERRIDES = ("keyframe_delta_trans:=1.1", "capacity_keyframes:=128",
+                    "capacity_edges:=512")
+SESSION2 = "session2"
+FLEET_FRAMES, FLEET_START_B, FLEET_WINDOW, FLEET_TICK = 80, 32, 48, 8
+FLEET_NAMES = ("atlas", "bestla")
+# the JAX package's runs of the same three on the CPU (`python
+# tools/launch_reference.py`: session 1 676 s, session 2 728 s, the fleet
+# 73 s on the CPU); ATEs of the own keyframes' optimized poses
+# (keyframe_ate), session 1's per-frame TUM trajectory's too
+REF_LAUNCH = {
+    "session1": dict(ate_m=0.30511539322832265,
+                     ate_frames_m=0.3630872050883842, keyframes=94,
+                     loops=17, map_points=301344),
+    "session2": dict(ate_m=0.2791342696841915, keyframes=58,
+                     merged_keyframes=94, loops=55, loaded_loops=34),
+    "fleet": {
+        "atlas": dict(ate_m=0.04239760999720859, keyframes=24, loops=27,
+                      inter_robot_loops=15, remote_keyframes=24),
+        "bestla": dict(ate_m=0.04177116757378762, keyframes=24, loops=27,
+                       inter_robot_loops=15, remote_keyframes=24)}}
 # bench.py's multi-robot section (run_multirobot_scaling, bench.py:277-475)
 # at its own width: build_world_and_scans(n_frames=160, laps=1.0)
 # (bench.py:71-81; 32768 raw points a scan, 4096 filtered), a fixed
@@ -1878,6 +1939,700 @@ def exchange_phase(torch):
                 phase_s=phase_s), rows
 
 
+def _changed_fields(cfg, default):
+    """The plain (not dataclass) fields of `cfg` that differ from
+    `default`, tuples as lists: what a user's YAML would say."""
+    out = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if not dataclasses.is_dataclass(v) and v != getattr(default, f.name):
+            out[f.name] = list(v) if isinstance(v, tuple) else v
+    return out
+
+
+def launch_engine_config():
+    """The CLI's config in the launch phase: bench's make_configs() and
+    make_slam_config() (131072 raw -> 8192 points, RADIUS removal,
+    SMALL_GICP with radius covariances, a dense LM) as an EngineConfig."""
+    from mrg_slam_tpu_torch.config import EngineConfig
+
+    pre, odo = make_configs()
+    return EngineConfig(model_namespace="bench", prefilter=pre,
+                        odometry=odo, slam=make_slam_config(odo))
+
+
+def config_yaml(cfg, drop=()):
+    """An EngineConfig as a YAML dict in the reference's layout
+    (`<section>: {ros__parameters: {...}}`, config/mrg_slam.yaml), each
+    section holding the fields that differ from the defaults, less the
+    keys in `drop` (given on the command line instead)."""
+    from mrg_slam_tpu_torch.config import EngineConfig
+
+    base = EngineConfig()
+    odo = {**_changed_fields(cfg.odometry, base.odometry),
+           **_changed_fields(cfg.odometry.registration,
+                             base.odometry.registration)}
+    slam = _changed_fields(cfg.slam, base.slam)
+    for name in ("optimizer", "loop", "inf_matrix", "registration", "gps",
+                 "imu", "floor_coeffs", "exchange"):
+        slam.update(_changed_fields(getattr(cfg.slam, name),
+                                    getattr(base.slam, name)))
+    sections = {"prefiltering_component": _changed_fields(cfg.prefilter,
+                                                          base.prefilter),
+                "scan_matching_odometry_component": odo,
+                "floor_detection_component": _changed_fields(cfg.floor,
+                                                             base.floor),
+                "mrg_slam_component": slam}
+    out = {"/**": {"ros__parameters": {"model_namespace":
+                                        cfg.model_namespace}}}
+    for name, params in sections.items():
+        out[name] = {"ros__parameters": {k: v for k, v in params.items()
+                                         if k not in drop}}
+    return out
+
+
+def launch_yaml():
+    """launch_engine_config() as a YAML dict, less the keys that
+    LAUNCH_OVERRIDES gives on the command line."""
+    return config_yaml(launch_engine_config(),
+                       [t.split(":=")[0] for t in LAUNCH_OVERRIDES])
+
+
+def launch_argv(config, bag, out, fused=False):
+    """The launch phase's session 1 command line (after `python -m
+    mrg_slam_tpu_torch.launch`)."""
+    return (["--config", str(config), "--dataset", "rosbag", "--bag",
+             str(bag), "--topic", LAUNCH_TOPIC, "--tick-every",
+             str(LAUNCH_TICK), "--output", str(out)]
+            + (["--fused"] if fused else []) + list(LAUNCH_OVERRIDES))
+
+
+def session2_init_pose(traj, se3np):
+    """Frame LAUNCH_FRAMES's true pose in session 1's map frame (whose
+    origin is frame 0's pose)."""
+    return init_pose_of(se3np.pose_between(traj[0], traj[LAUNCH_FRAMES]))
+
+
+def inter_robot_loops(db, name=None):
+    """Loop edges whose ends belong to different robots (with `name`: of
+    which one is `name`'s)."""
+    def robots(e):
+        return {db.uuid_keyframe_map[e.from_uuid].robot_name,
+                db.uuid_keyframe_map[e.to_uuid].robot_name}
+    return sum(1 for e in db.edges if e.type == "loop"
+               and len(robots(e)) == 2 and (name is None or name in robots(e)))
+
+
+def keyframe_ate(kfs, traj, ate_rmse):
+    """ATE of (stamp, 7-pose) keyframe estimates against the ground truth
+    at their frames (a frame every 0.1 s), Umeyama-aligned, as bench.py
+    evaluates full SLAM."""
+    kfs = sorted(kfs, key=lambda sp: sp[0])
+    idx = [int(round(st / 0.1)) for st, _ in kfs]
+    est = np.stack([np.asarray(p, np.float64) for _, p in kfs])
+    return float(ate_rmse(est[:, :3], traj[idx, :3]))
+
+
+def own_keyframes(db, name):
+    """(stamp, optimized pose) of `name`'s own keyframes in a store."""
+    return [(k.stamp, k.estimate(db.graph))
+            for k in db.keyframes + db.new_keyframes
+            if k.robot_name == name and k.odom_counter >= 0]
+
+
+def saved_keyframes(directory):
+    """(stamp, saved estimate) of every keyframe of a graph directory."""
+    from pathlib import Path
+
+    out = []
+    for kdir in sorted((Path(directory) / "keyframes").iterdir()):
+        meta = dict(line.split(" ", 1) for line in
+                    (kdir / "data.txt").read_text().splitlines())
+        out.append((float(meta["stamp"]),
+                    np.asarray(meta["estimate"].split(), np.float32)))
+    return out
+
+
+def session2_counts(db):
+    """Session 2's store: its own keyframes, merged (loaded) keyframes,
+    loop edges and loop edges to loaded keyframes."""
+    kfs = [k for k in db.keyframes + db.new_keyframes]
+    return dict(
+        keyframes=sum(k.robot_name == SESSION2 for k in kfs),
+        merged_keyframes=sum(k.robot_name != SESSION2 for k in kfs),
+        loops=sum(1 for e in db.edges if e.type == "loop"),
+        loaded_loops=inter_robot_loops(db, SESSION2))
+
+
+def fleet_metrics(robots, traj, ate_rmse):
+    """Per robot of the fleet run: keyframes (its own), loops, inter-robot
+    loops, remote keyframes merged and the ATE of its own keyframes'
+    optimized poses (`keyframe_ate`)."""
+    out = {}
+    for name, robot in robots.items():
+        db = robot.slam.db
+        kfs = db.keyframes + db.new_keyframes
+        out[name] = dict(
+            keyframes=sum(k.robot_name == name for k in kfs),
+            remote_keyframes=sum(k.robot_name != name for k in kfs),
+            loops=sum(1 for e in db.edges if e.type == "loop"),
+            inter_robot_loops=inter_robot_loops(db),
+            ate_m=keyframe_ate(own_keyframes(db, name), traj, ate_rmse))
+    return out
+
+
+class LaunchLog:
+    """What the launch phase's runs did, recorded by patches that pass
+    every call on: the host time spent decoding bag messages (in the
+    reader's generator) and the frames decoded; per PairRunner prefetch
+    chunk (one moments launch) whether it held loaded keyframes, and the
+    largest such chunk; the largest pair bucket (via BucketRecorder)."""
+
+    def __init__(self, torch):
+        from mrg_slam_tpu_torch.io import rosbag
+        from mrg_slam_tpu_torch.models.pair_runner import PairRunner
+        from mrg_slam_tpu_torch.ops import registration as reg
+
+        self.decode_s, self.decoded = 0.0, 0
+        self.chunks, self.loaded_chunks, self.prefetch = 0, 0, None
+        self.buckets = BucketRecorder(reg)
+
+        def pointclouds(fn):
+            def call(bag, topic):
+                it = fn(bag, topic)
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        item = next(it)
+                    except StopIteration:
+                        return
+                    finally:
+                        self.decode_s += time.perf_counter() - t0
+                    self.decoded += 1
+                    yield item
+            return call
+
+        def prefetch(fn):
+            def call(runner, kfs):
+                groups = {}
+                for k in kfs:
+                    if k.gicp is None and k.cloud.capacity > 0:
+                        groups.setdefault(k.cloud.capacity, []).append(k)
+                b = runner.PREFETCH_BUCKET
+                for g in groups.values():
+                    for chunk in (g[i:i + b] for i in range(0, len(g), b)):
+                        self.chunks += 1
+                        if not any(k.estimate_loaded is not None
+                                   for k in chunk):
+                            continue
+                        self.loaded_chunks += 1
+                        if self.prefetch is None or (
+                                len(chunk) > self.prefetch[0].shape[0]):
+                            self.prefetch = (
+                                torch.stack([k.cloud.points for k in chunk]),
+                                torch.stack([k.cloud.mask for k in chunk]))
+                return fn(runner, kfs)
+            return call
+
+        self.patches = [Patched(rosbag.BagReader, "pointclouds", pointclouds),
+                        Patched(PairRunner, "prefetch_batch", prefetch),
+                        self.buckets]
+
+    def __enter__(self):
+        for p in self.patches:
+            p.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for p in reversed(self.patches):
+            p.__exit__(*exc)
+
+
+def _launch_counters():
+    from mrg_slam_tpu_torch.ops import nn_kernel, stats_kernel
+
+    return (("nn", nn_kernel.nn_cuda), ("count", stats_kernel.count_cuda),
+            ("moments", stats_kernel.moments_cuda))
+
+
+def _same_tree(a, b):
+    """Byte-identical `keyframes/` and `edges/` of two graph directories
+    (file names and contents) -> number of files compared."""
+    import filecmp
+    from pathlib import Path
+
+    n = 0
+    for sub in ("keyframes", "edges"):
+        fa = sorted(p.relative_to(a) for p in (Path(a) / sub).rglob("*")
+                    if p.is_file())
+        fb = sorted(p.relative_to(b) for p in (Path(b) / sub).rglob("*")
+                    if p.is_file())
+        if fa != fb:
+            raise AssertionError(f"save -> load -> save: {sub}/ holds other "
+                                 "files")
+        for f in fa:
+            if not filecmp.cmp(Path(a) / f, Path(b) / f, shallow=False):
+                raise AssertionError(f"save -> load -> save: {f} differs")
+        n += len(fa)
+    return n
+
+
+def check_cli_outputs(out, summary, frames, min_points=1):
+    """The CLI's output contract: the TUM trajectory a line a frame, a
+    map PCD holding summary["map_points"] points (at least `min_points`),
+    a graph directory of summary["keyframes"] keyframes, a PLY and the
+    summary's keys."""
+    keys = {"frames", "keyframes", "loops", "ate_rmse", "rpe_rmse",
+            "frames_per_s", "map_points"}
+    bad = []
+    if set(summary) != keys:
+        bad.append(f"summary keys {sorted(summary)}")
+    if summary["frames"] != frames:
+        bad.append(f"{summary['frames']} frames, {frames} in the input")
+    tum = np.loadtxt(out / "trajectory_tum.txt", ndmin=2)
+    if tum.shape != (frames, 8) or not np.isfinite(tum).all():
+        bad.append(f"trajectory_tum.txt {tum.shape}")
+    pcd = (out / "map.pcd").read_bytes()
+    head, _, body = pcd.partition(b"DATA binary\n")
+    n = summary["map_points"]
+    if (f"POINTS {n}\n".encode() not in head or len(body) != 12 * n
+            or n < min_points):
+        bad.append(f"map.pcd does not hold {n} points")
+    kfs = len(list((out / "graph" / "keyframes").iterdir()))
+    if kfs != summary["keyframes"] or not (out / "graph" / "graph.g2o"
+                                           ).exists():
+        bad.append(f"graph/ holds {kfs} keyframes, summary "
+                   f"{summary['keyframes']}")
+    if not (out / "graph.ply").read_bytes().startswith(b"ply\n"):
+        bad.append("graph.ply")
+    if bad:
+        raise AssertionError("CLI outputs: " + "; ".join(bad))
+
+
+def _within(name, got, ref, band, at_least_one=False):
+    """got within `band` of ref (and >= 1 when asked) or a message."""
+    if abs(got - ref) > band or (at_least_one and got < 1):
+        return [f"{name} {got}, JAX CPU {ref}"]
+    return []
+
+
+def _ate_bound(ref):
+    return max(ref + 0.05, 1.2 * ref)
+
+
+def check_launch(m):
+    """Sessions 1 and 2 and the fleet against REF_LAUNCH: ATE at most
+    max(ref + 0.05 m, 1.2 ref), keyframes within 2, loops within
+    max(2, 0.2 ref) (at least one where the JAX package has one), loops
+    to loaded keyframes in the same band, the fleet's inter-robot loops
+    within max(3, 0.3 ref) and at least one; every kernel launched."""
+    bad = []
+    for part in ("session1", "session2"):
+        got, ref = m[part], REF_LAUNCH[part]
+        if not got["ate_m"] <= _ate_bound(ref["ate_m"]):
+            bad.append(f"{part} ATE {got['ate_m']:.4f} m > "
+                       f"{_ate_bound(ref['ate_m']):.4f}")
+        bad += _within(f"{part} keyframes", got["keyframes"],
+                       ref["keyframes"], 2)
+        bad += _within(f"{part} loops", got["loops"], ref["loops"],
+                       max(2, 0.2 * ref["loops"]), ref["loops"] >= 1)
+    ref = REF_LAUNCH["session2"]
+    bad += _within("session2 loops to loaded keyframes",
+                   m["session2"]["loaded_loops"], ref["loaded_loops"],
+                   max(2, 0.2 * ref["loaded_loops"]),
+                   ref["loaded_loops"] >= 1)
+    if m["session2"]["merged_keyframes"] != m["session1"]["keyframes"]:
+        bad.append(f"session2 merged {m['session2']['merged_keyframes']} "
+                   f"keyframes of session 1's {m['session1']['keyframes']}")
+    for name in FLEET_NAMES:
+        got, ref = m["fleet"][name], REF_LAUNCH["fleet"][name]
+        if not got["ate_m"] <= _ate_bound(ref["ate_m"]):
+            bad.append(f"fleet {name} ATE {got['ate_m']:.4f} m > "
+                       f"{_ate_bound(ref['ate_m']):.4f}")
+        bad += _within(f"fleet {name} keyframes", got["keyframes"],
+                       ref["keyframes"], 2)
+        bad += _within(f"fleet {name} loops", got["loops"], ref["loops"],
+                       max(2, 0.2 * ref["loops"]), ref["loops"] >= 1)
+        bad += _within(f"fleet {name} inter-robot loops",
+                       got["inter_robot_loops"], ref["inter_robot_loops"],
+                       max(3, 0.3 * ref["inter_robot_loops"]), True)
+    for part in ("sessions", "fleet"):
+        if not all(v > 0 for k, v in m["launches"][part].items()
+                   if part == "sessions" or k != "count"):
+            bad.append(f"{part}: a kernel never launched: "
+                       f"{m['launches'][part]}")
+    if bad:
+        raise AssertionError("launch phase: " + "; ".join(bad))
+
+
+def launch_sessions(torch, inp, work):
+    """(a) session 1 through the CLI from a bag, (b) save -> load -> save
+    of its graph on the card, (c) session 2 continuing from it, the
+    kernels' counts from 0 just before (a) and read just after (c).
+    -> (metrics, LaunchLog of (c), frame 0's scan)."""
+    import yaml
+
+    from mrg_slam_tpu_torch import launch
+    from mrg_slam_tpu_torch.config import EngineConfig
+    from mrg_slam_tpu_torch.io.rosbag import write_bag
+    from mrg_slam_tpu_torch.models import persistence
+    from mrg_slam_tpu_torch.models.backend import MrgSlam
+    from mrg_slam_tpu_torch.pipeline.replay import Robot, replay
+    from mrg_slam_tpu_torch.utils import se3np
+    from mrg_slam_tpu_torch.utils.metrics import ate_rmse
+    from mrg_slam_tpu_torch.utils.tum import load_tum
+
+    n1 = LAUNCH_FRAMES
+    raw = inp.raw[:SLAM_FRAMES].cpu().numpy()
+    rmask = inp.rmask[:SLAM_FRAMES].cpu().numpy()
+    frames = [(i * 0.1, raw[i][rmask[i]]) for i in range(SLAM_FRAMES)]
+    del raw, rmask
+    traj = inp.traj
+    t0 = time.perf_counter()
+    bag = work / "session1.db3"
+    write_bag(str(bag), LAUNCH_TOPIC, frames[:n1])
+    bag_s = time.perf_counter() - t0
+    config = work / "launch.yaml"
+    config.write_text(yaml.safe_dump(launch_yaml()))
+    cfg = EngineConfig.from_yaml_dict(launch._apply_overrides(
+        yaml.safe_load(config.read_text()),
+        launch._parse_overrides(LAUNCH_OVERRIDES)))
+    if cfg != launch_engine_config():
+        raise AssertionError("the launch YAML with its overrides is not "
+                             "bench's config")
+    log(f"# launch: bag of {n1} frames ({bag.stat().st_size / 2**20:.1f} "
+        f"MiB) written in {bag_s:.1f} s; YAML + {list(LAUNCH_OVERRIDES)} "
+        "== bench's configs")
+
+    counters = _launch_counters()
+    for _, fn in counters:
+        fn.launches = 0
+    out1 = work / "session1"
+    sync = SyncReads(torch)
+    with LaunchLog(torch) as log1, sync:
+        t0 = time.perf_counter()
+        rc = launch.main(launch_argv(config, bag, out1))
+        s1_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"launch.main returned {rc}")
+    summary = json.loads((out1 / "summary.json").read_text())
+    check_cli_outputs(out1, summary, n1)
+    _, poses = load_tum(out1 / "trajectory_tum.txt")
+    s1 = dict(ate_m=keyframe_ate(saved_keyframes(out1 / "graph"), traj,
+                                 ate_rmse),
+              ate_frames_m=float(ate_rmse(poses[:, :3], traj[:n1, :3])),
+              keyframes=summary["keyframes"], loops=summary["loops"],
+              map_points=summary["map_points"],
+              frames_per_s=summary["frames_per_s"], wall_s=s1_s,
+              decode_ms_per_frame=log1.decode_s / max(log1.decoded, 1) * 1e3,
+              host_reads_per_frame=sync.count() / n1,
+              host_read_sources=[[w, c / n1] for w, c in sync.top()],
+              launches={k: fn.launches for k, fn in counters})
+    ref = REF_LAUNCH["session1"]
+    log(f"# launch session 1 (CLI, rosbag, per frame): {n1} frames at "
+        f"{s1['frames_per_s']:.2f} frames/s ({s1_s:.1f} s in launch.main, "
+        f"outputs included); keyframe ATE {s1['ate_m']:.4f} m (JAX CPU "
+        f"{ref['ate_m']:.4f}), per-frame ATE of trajectory_tum.txt "
+        f"{s1['ate_frames_m']:.4f} m ({ref['ate_frames_m']:.4f}), keyframes "
+        f"{s1['keyframes']} "
+        f"({ref['keyframes']}), loops {s1['loops']} ({ref['loops']}), map "
+        f"points {s1['map_points']} ({ref['map_points']}); bag decode "
+        f"{s1['decode_ms_per_frame']:.2f} ms a frame (host), host reads "
+        f"{s1['host_reads_per_frame']:.2f} a frame; launches "
+        f"{s1['launches']}; reads a frame by line: "
+        + ", ".join(f"{w} {c:.2f}" for w, c in s1["host_read_sources"]))
+
+    # (b) save -> load -> flush (no optimize) -> save, on the card
+    slam = MrgSlam(cfg.slam)
+    loaded = persistence.load_graph(slam, out1 / "graph")
+    slam.db.flush_loaded_graph(slam.loop_detector.loop_manager)
+    with SyncReads(torch) as sync_save:
+        t0 = time.perf_counter()
+        persistence.save_graph(slam, work / "graph_again")
+        save_ms = (time.perf_counter() - t0) * 1e3
+    files = _same_tree(out1 / "graph", work / "graph_again")
+    persist = dict(keyframes=loaded, files=files, save_ms=save_ms,
+                   save_reads=sync_save.count())
+    log(f"# launch persistence: session 1's graph loaded ({loaded} "
+        f"keyframes), flushed and saved again on the card: {files} files "
+        f"of keyframes/ and edges/ byte-identical; the save took "
+        f"{save_ms:.1f} ms and {persist['save_reads']} host reads")
+    del slam
+
+    # (c) session 2: a fresh stack loads session 1's graph and goes on
+    cfg2 = dataclasses.replace(cfg, slam=dataclasses.replace(
+        cfg.slam, own_name=SESSION2, multi_robot_names=(SESSION2,),
+        init_pose=session2_init_pose(traj, se3np)))
+    with LaunchLog(torch) as log2:
+        t0 = time.perf_counter()
+        robot = Robot(cfg2)
+        persistence.load_graph(robot.slam, out1 / "graph")
+        res = replay(robot, frames[n1:], tick_every=LAUNCH_TICK)
+        s2_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters}
+    s2 = dict(ate_m=keyframe_ate(own_keyframes(robot.slam.db, SESSION2),
+                                 traj, ate_rmse),
+              **session2_counts(robot.slam.db),
+              frames_per_s=res.frames_per_s, wall_s=s2_s,
+              prefetch_chunks_loaded=log2.loaded_chunks,
+              launches={k: launches[k] - s1["launches"][k]
+                        for k in launches})
+    ref = REF_LAUNCH["session2"]
+    log(f"# launch session 2 (load_graph, replay of frames {n1}-"
+        f"{SLAM_FRAMES - 1}): keyframe ATE {s2['ate_m']:.4f} m (JAX CPU "
+        f"{ref['ate_m']:.4f}), own keyframes {s2['keyframes']} "
+        f"({ref['keyframes']}), merged {s2['merged_keyframes']} "
+        f"({ref['merged_keyframes']}), loops {s2['loops']} ({ref['loops']}),"
+        f" loops to loaded keyframes {s2['loaded_loops']} "
+        f"({ref['loaded_loops']}); {s2['frames_per_s']:.2f} frames/s; "
+        f"{log2.loaded_chunks} covariance passes over loaded keyframes; "
+        f"launches {s2['launches']}")
+    if log2.prefetch is None:
+        raise AssertionError("no covariance pass held loaded keyframes")
+    moments_frame = (launches["moments"] - log1.chunks - log2.chunks)
+    return (dict(session1=s1, persistence=persist, session2=s2,
+                 launches=launches, moments_frame_launches=moments_frame,
+                 prefetch_launches=log2.loaded_chunks),
+            log2, frames[0][1])
+
+
+def launch_fleet(torch, work):
+    """(d) the fleet bag through `run_fleet_from_bag`, then the CLI's
+    --robots path on the same bag for its output contract; (e) the CLI on
+    tests/data/kitti_mini. -> metrics."""
+    import yaml
+
+    from mrg_slam_tpu_torch import launch
+    from mrg_slam_tpu_torch.io.rosbag import write_multi_bag
+    from mrg_slam_tpu_torch.io.synthetic import circle_trajectory
+    from mrg_slam_tpu_torch.pipeline import baseline_runs as bl
+    from mrg_slam_tpu_torch.pipeline.bagfleet import run_fleet_from_bag
+    from mrg_slam_tpu_torch.utils.metrics import ate_rmse
+
+    world = bl._world()
+    traj = circle_trajectory(FLEET_FRAMES, radius=14.0, laps=1.0)
+    frames = [(i * 0.1, world.scan(p, seed=i)) for i, p in enumerate(traj)]
+    a, b = FLEET_NAMES
+    bag = work / "fleet.db3"
+    write_multi_bag(str(bag), {
+        f"/{a}/velodyne_points": frames[:FLEET_WINDOW],
+        f"/{b}/velodyne_points": frames[FLEET_START_B:]})
+    cfg = bl._base_cfg()
+    cfg = dataclasses.replace(cfg, slam=dataclasses.replace(
+        cfg.slam, exchange=dataclasses.replace(
+            cfg.slam.exchange, graph_request_min_time_delay=0.5,
+            graph_request_min_accum_dist=1.0)))
+    counters = _launch_counters()
+    for _, fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    robots, results = run_fleet_from_bag(
+        cfg, str(bag), list(FLEET_NAMES), tick_every=FLEET_TICK,
+        init_poses={a: init_pose_of(traj[0]),
+                    b: init_pose_of(traj[FLEET_START_B])})
+    wall = time.perf_counter() - t0
+    fleet = fleet_metrics(robots, traj, ate_rmse)
+    launches = {k: fn.launches for k, fn in counters}
+    for name in FLEET_NAMES:
+        f, ref = fleet[name], REF_LAUNCH["fleet"][name]
+        log(f"# launch fleet {name}: keyframe ATE {f['ate_m']:.4f} m (JAX "
+            f"CPU {ref['ate_m']:.4f}), keyframes {f['keyframes']} "
+            f"({ref['keyframes']}), loops {f['loops']} ({ref['loops']}), "
+            f"inter-robot loops {f['inter_robot_loops']} "
+            f"({ref['inter_robot_loops']}), remote keyframes "
+            f"{f['remote_keyframes']} ({ref['remote_keyframes']}); "
+            f"{results[name].frames_per_s:.2f} frames/s")
+    log(f"# launch fleet: {wall:.1f} s, launches {launches}")
+
+    config = work / "fleet.yaml"
+    config.write_text(yaml.safe_dump(config_yaml(cfg)))
+    out = work / "fleet_cli"
+    rc = launch.main(["--config", str(config), "--dataset", "rosbag",
+                      "--bag", str(bag), "--robots", ",".join(FLEET_NAMES),
+                      "--tick-every", str(FLEET_TICK), "--output", str(out)])
+    cli = json.loads((out / "summary.json").read_text())
+    keys = {"frames", "keyframes", "loops", "inter_robot_loops"}
+    if rc != 0 or list(cli) != list(FLEET_NAMES) or any(
+            set(v) != keys or v["frames"] != FLEET_WINDOW
+            or len(list((out / n / "graph" / "keyframes").iterdir()))
+            != v["keyframes"] for n, v in cli.items()):
+        raise AssertionError(f"launch --robots: rc {rc}, summary {cli}")
+    log(f"# launch --robots (CLI, no init poses): {json.dumps(cli)}")
+
+    out = work / "kitti"
+    rc = launch.main(["--dataset", "kitti", "--kitti-root",
+                      os.path.join(ROOT, "tests", "data", "kitti_mini"),
+                      "--tick-every", "2", "--output", str(out),
+                      "capacity_raw_points:=128",
+                      "capacity_filtered_points:=64",
+                      "capacity_keyframe_points:=64",
+                      "capacity_keyframes:=16", "capacity_edges:=64",
+                      "outlier_removal_method:=NONE",
+                      "downsample_resolution:=0.05"])
+    kitti = json.loads((out / "summary.json").read_text())
+    if rc != 0:
+        raise AssertionError(f"launch --dataset kitti returned {rc}")
+    check_cli_outputs(out, kitti, 3, min_points=0)
+    log(f"# launch --dataset kitti (kitti_mini): {json.dumps(kitti)}")
+    return dict(fleet, wall_s=wall, launches=launches, cli=cli,
+                kitti=kitti)
+
+
+def launch_kernel_rows(torch, m, log2, scan0):
+    """count and moments at the per-frame path's shape at this width (one
+    frame of 8192 lanes: frame 0's voxel grid output for count, its
+    prefiltered cloud for moments), moments at the largest covariance
+    pass over loaded keyframes (K x 8192), nn at session 2's largest pair
+    bucket; each held to its plain version (count exact, nn bitwise,
+    moments within the summation bound and MOMENTS_ULPS float32 steps of
+    X^2) and timed as the other rows."""
+    from mrg_slam_tpu_torch.ops import nn_kernel as nk
+    from mrg_slam_tpu_torch.ops import stats_kernel as sk
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud, pad_invalid
+    from mrg_slam_tpu_torch.ops.prefilter import downsample_stage, prefilter
+    from mrg_slam_tpu_torch.utils import se3
+
+    cfg = launch_engine_config()
+    pre = cfg.prefilter
+    pc = PointCloud.from_array(scan0, pre.capacity_raw_points)
+    base = torch.from_numpy(cfg.lidar2base.pose7()).to(pc.points.device)
+    vox = downsample_stage(pc, pre, base_transform=base)
+    c_pts, c_mask = vox.points[None].contiguous(), vox.mask[None].contiguous()
+    r2c = sk.radius_sq(pre.radius_radius)
+    err_c, c_plain = check_count(torch, sk, c_pts, c_mask, r2c,
+                                 "one frame at 8192")
+    c_real = c_pts[0][c_mask[0]]
+    rad_c = float(pre.radius_radius)
+
+    def lib_count():
+        d = torch.cdist(c_real, c_real,
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        return ((d <= rad_c) & (d > 0)).sum(-1)
+
+    where = "sessions 1 and 2"
+    rows = [timed_row(
+        torch, "count_frame_8192", "mrg_slam_tpu_torch/csrc/radius_stats.cu",
+        "mrg_slam_tpu/ops/pallas_stats.py:34",
+        lambda: sk.count_cuda(c_pts, c_mask, r2c),
+        lambda: sk.count_plain(c_pts, c_mask, r2c), lib_count,
+        m["launches"]["count"], err_c,
+        *bound(float(c_plain.double().sum()), 11, 0,
+               c_pts.numel() * 4 + c_mask.numel() * 5), where=where)]
+
+    def moments_row(name, pts, mask, radius, launches, what, where):
+        r2 = sk.radius_sq(radius)
+        err, inside = check_moments(torch, sk, pts, r2, what, mask)
+        x = float(pts[mask].abs().max())
+        bar = max(MOMENTS_EXCHANGE_TOL,
+                  MOMENTS_ULPS * float(np.spacing(np.float32(x * x))))
+        log(f"# moments {what}: max |err| {err:.3g}, bar {bar:.3g} "
+            f"({MOMENTS_ULPS} float32 steps of X^2, X = {x:.1f} m)")
+        if not err <= bar:
+            raise AssertionError(f"moments {what}: {err} > {bar}")
+        feats = torch.cat([torch.ones_like(pts[..., :1]), pts,
+                           *(pts[..., i:i + 1] * pts[..., j:j + 1]
+                             for i, j in ((0, 0), (0, 1), (0, 2), (1, 1),
+                                          (1, 2), (2, 2)))], dim=-1)
+        real = [(p[k], f[k]) for p, f, k in zip(pts, feats, mask)]
+
+        def lib():
+            return [(torch.cdist(p, p,
+                                 compute_mode="donot_use_mm_for_euclid_dist")
+                     <= radius).float() @ f for p, f in real]
+
+        n_real = mask.sum(-1).double()
+        return timed_row(
+            torch, name, "mrg_slam_tpu_torch/csrc/radius_stats.cu",
+            "mrg_slam_tpu/ops/pallas_stats.py:93",
+            lambda: sk.moments_cuda(pts, pts, r2, mask, mask),
+            lambda: sk.moments_plain(pts, pts, r2, mask, mask), lib,
+            launches, err,
+            *bound(float((n_real * n_real).sum()), 9, 16 * inside,
+                   pts.numel() * 4 + pts.shape[0] * pts.shape[1] * 40),
+            where=where)
+
+    blk = prefilter(pc, pre, base_transform=base)
+    f_pts = pad_invalid(blk.points, blk.mask)[None].contiguous()
+    f_mask = blk.mask[None].contiguous()
+    rows.append(moments_row(
+        "moments_frame_8192", f_pts, f_mask,
+        float(cfg.odometry.registration.reg_covariance_radius),
+        m["moments_frame_launches"], "one frame at 8192",
+        "sessions 1 and 2 (per-frame odometry)"))
+    p_pts, p_mask = (x.contiguous() for x in log2.prefetch)
+    p_pts = pad_invalid(p_pts, p_mask).contiguous()
+    rows.append(moments_row(
+        "moments_prefetch_loaded", p_pts, p_mask,
+        float(cfg.slam.registration.reg_covariance_radius),
+        m["prefetch_launches"], "loaded keyframes' covariance pass",
+        "session 2 (passes over loaded keyframes)"))
+    log(f"# moments at the loaded keyframes' covariance pass: "
+        f"{p_pts.shape[0]} x {p_pts.shape[1]} lanes")
+
+    tgts, srcs, inits = log2.buckets.largest
+    init = torch.from_numpy(inits).to(tgts[0].points.device)
+    p_src = se3.pose_apply(init[:, None, :], torch.stack(
+        [c.points for c in srcs])).contiguous()
+    p_sm = torch.stack([c.mask for c in srcs]).contiguous()
+    t_m = torch.stack([c.mask for c in tgts]).contiguous()
+    p_tgt = pad_invalid(torch.stack([c.points for c in tgts]),
+                        t_m).contiguous()
+    err = check_nn(torch, nk, p_src, p_tgt, "session 2 pair bucket", p_sm,
+                   t_m)
+    log(f"# nn at session 2's largest pair bucket: {p_src.shape[0]} rows x "
+        f"{p_src.shape[1]} lanes: bitwise == plain on every lane")
+    real = [(s[ms], t[mt]) for s, t, ms, mt in zip(p_src, p_tgt, p_sm, t_m)]
+
+    def lib_nn():
+        return [torch.cdist(s[None], t[None],
+                            compute_mode="donot_use_mm_for_euclid_dist"
+                            ).min(dim=-1) for s, t in real]
+
+    pairs = float((p_sm.sum(-1).double() * t_m.sum(-1).double()).sum())
+    rows.append(timed_row(
+        torch, "nn_pairs_loaded", "mrg_slam_tpu_torch/csrc/nn.cu",
+        "mrg_slam_tpu/ops/pallas_nn.py:48",
+        lambda: nk.nn_cuda(p_src, p_tgt, p_sm, t_m),
+        lambda: nk.nn_plain(p_src, p_tgt, p_sm, t_m), lib_nn,
+        m["launches"]["nn"], err,
+        *bound(pairs, 9, 0, (p_src.numel() + p_tgt.numel()) * 4
+               + p_src.shape[0] * p_src.shape[1] * 12), where=where))
+    return rows
+
+
+def launch_phase(torch, inp):
+    """The launch path on the card: (a) session 1 through `python -m
+    mrg_slam_tpu_torch.launch` (in process) from a bag of the first
+    LAUNCH_FRAMES frames of the full-SLAM world at bench's production
+    width, with bench's configs as a reference-layout YAML and
+    LAUNCH_OVERRIDES; (b) its graph saved, loaded, flushed and saved
+    again byte for byte; (c) session 2 loading it and replaying the
+    frames after it; (d) the fleet bag through run_fleet_from_bag and
+    the CLI's --robots; (e) the CLI on kitti_mini. Each held to
+    tools/launch_reference.py's numbers (REF_LAUNCH); then the kernel
+    rows of this path's new shapes."""
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        m, log2, scan0 = launch_sessions(torch, inp, work)
+        fl = launch_fleet(torch, work)
+    m["fleet"] = {n: fl[n] for n in FLEET_NAMES}
+    m["fleet_wall_s"], m["fleet_cli"], m["kitti"] = (
+        fl["wall_s"], fl["cli"], fl["kitti"])
+    m["launches"] = dict(sessions=m["launches"], fleet=fl["launches"])
+    check_launch(m)
+    rows = launch_kernel_rows(torch, dict(
+        launches=m["launches"]["sessions"],
+        moments_frame_launches=m.pop("moments_frame_launches"),
+        prefetch_launches=m.pop("prefetch_launches")), log2, scan0)
+    m["phase_s"] = time.perf_counter() - t0
+    log(f"# launch phase: {m['phase_s']:.1f} s")
+    return m, rows
+
+
 class FrontEndInputs(NamedTuple):
     traj: np.ndarray   # (SLAM_FRAMES, 7) ground-truth poses
     raw: object        # (SLAM_FRAMES, RAW, 3) float32 scans on the card
@@ -2943,6 +3698,8 @@ def main():
     floor_m = floor_phase(torch, dev)
     exchange_m, exchange_rows = exchange_phase(torch)
     rows.extend(exchange_rows)
+    launch_m, launch_rows = launch_phase(torch, inp)
+    rows.extend(launch_rows)
     log(json.dumps({"frames_per_s": fps,
                     "pass1_frames_per_s": FRAMES / sum(run1.block_walls),
                     "ate_m": ate, "ref_ate_m": REF_ATE_M,
@@ -2955,6 +3712,7 @@ def main():
                     "replay": replay_m,
                     "floor": floor_m,
                     "exchange": exchange_m,
+                    "launch": launch_m,
                     "build_s": native.build_seconds}))
     log(f"# smoke run: {time.perf_counter() - t_start:.1f} s, kernel builds "
         "included")

@@ -8,12 +8,19 @@ only CPU tensors (the tests) use.
 
 Package layout mirrors the JAX package:
 - `ops/`      clouds, voxel grid, prefilter, NN and radius kernels,
-              covariances, GICP registration
-- `models/`   fused scan-matching odometry
-- `utils/`    SE(3) math, trajectory metrics
-- `io/`       the synthetic LiDAR world
+              covariances, GICP registration, RANSAC, ground fill
+- `graph/`    pose-graph edges and the dense, cg and chain LM solvers
+- `models/`   odometry (fused and per frame), the SLAM back end, its
+              store, loop detection, the exchange, floor detection and
+              sensor processors, persistence and markers
+- `pipeline/` replay (one robot, a fleet, a fleet from a bag), the
+              acceptance rows
+- `parallel/` the exchange's messages
+- `utils/`    SE(3) math, trajectory metrics, TUM, geodesy, NMEA
+- `io/`       the synthetic LiDAR world, PCD, rosbag, KITTI
 - `config.py`, `runtime.py` (device, numerics), `convert.py` (state from
-  the JAX package)
+  the JAX package), `launch.py` (the command line:
+  `python -m mrg_slam_tpu_torch.launch`)
 
 The package imports nothing of JAX or of mrg_slam_tpu.
 """

@@ -5,14 +5,15 @@ solver).
 Field names and defaults are those of the JAX package's dataclasses, which
 mirror the reference's canonical YAML (mrg_slam.yaml:41-243), so that a
 config written for one package reads unchanged in the other
-(`convert.config_from_fields`). `capacity_*` fields size the padded clouds
-and the graph stores. The GPS, IMU, floor and exchange configs are plain
-fields here: their processors and services are not ported yet, and the
-back end and `pipeline.replay.Robot` refuse a config that enables them.
+(`convert.config_from_fields`), and the reference's own YAML with its
+`<section>: {ros__parameters: {...}}` layout builds an `EngineConfig`
+(`EngineConfig.from_yaml_dict`, the launch CLI's `--config`).
+`capacity_*` fields size the padded clouds and the graph stores.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Tuple
@@ -20,6 +21,14 @@ from typing import Tuple
 import numpy as np
 
 from .utils.se3np import rpy_to_quat
+
+
+def _replace_from_dict(obj, d: dict):
+    """`obj` with the fields its dataclass declares taken from `d`; the
+    other keys of `d` are ignored."""
+    names = {f.name for f in dataclasses.fields(obj)}
+    return dataclasses.replace(
+        obj, **{k: v for k, v in d.items() if k in names})
 
 
 @dataclass(frozen=True)
@@ -286,3 +295,51 @@ class EngineConfig:
         default_factory=ScanMatchingOdometryConfig)
     floor: FloorDetectionConfig = field(default_factory=FloorDetectionConfig)
     slam: SlamConfig = field(default_factory=SlamConfig)
+
+    def with_overrides(self, **kwargs) -> "EngineConfig":
+        return dataclasses.replace(self, **kwargs)
+
+    @staticmethod
+    def from_yaml_dict(d: dict) -> "EngineConfig":
+        """Build from a dict shaped like the reference YAML (section ->
+        params), as the JAX package's does (config.py:337-380).
+
+        Takes the `<section>: {ros__parameters: {...}}` nesting of
+        config/mrg_slam.yaml as well as flat `<section>: {...}` dicts.
+        Each component section fills every dataclass below it from one
+        flat namespace (the odometry's registration from
+        `scan_matching_odometry_component`, the back end's optimizer,
+        loop, information-matrix, registration, GPS, IMU, floor and
+        exchange configs from `mrg_slam_component`); `/**` carries
+        `model_namespace`; a key no dataclass declares is ignored.
+        """
+        def params(section: str) -> dict:
+            sec = d.get(section, {}) or {}
+            return sec.get("ros__parameters", sec)
+
+        cfg = EngineConfig()
+        l2b = _replace_from_dict(cfg.lidar2base,
+                                 params("lidar2base_publisher"))
+        pre = _replace_from_dict(cfg.prefilter,
+                                 params("prefiltering_component"))
+        odo_p = params("scan_matching_odometry_component")
+        odo = dataclasses.replace(
+            _replace_from_dict(cfg.odometry, odo_p),
+            registration=_replace_from_dict(cfg.odometry.registration,
+                                            odo_p))
+        flo = _replace_from_dict(cfg.floor,
+                                 params("floor_detection_component"))
+        slam_p = params("mrg_slam_component")
+        s = cfg.slam
+        slam = dataclasses.replace(
+            _replace_from_dict(s, slam_p),
+            multi_robot_names=tuple(slam_p.get("multi_robot_names",
+                                               s.multi_robot_names)),
+            **{name: _replace_from_dict(getattr(s, name), slam_p)
+               for name in ("optimizer", "loop", "inf_matrix",
+                            "registration", "gps", "imu", "floor_coeffs",
+                            "exchange")})
+        ns = params("/**").get("model_namespace", cfg.model_namespace)
+        return EngineConfig(model_namespace=ns, lidar2base=l2b,
+                            prefilter=pre, odometry=odo, floor=flo,
+                            slam=slam)

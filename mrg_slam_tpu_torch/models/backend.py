@@ -322,7 +322,8 @@ class MrgSlam:
         flushed = bool(pending_edges)
         flushed |= self.db.flush_static_keyframe_queue()
         flushed |= self.db.flush_graph_queue(self.loop_detector.loop_manager)
-        flushed |= self.db.flush_loaded_graph()
+        flushed |= self.db.flush_loaded_graph(
+            self.loop_detector.loop_manager)
         flushed |= _flush_processors(
             self.db, (self.floor_processor, self.gps_processor,
                       self.imu_processor), self.db.own_keyframes())

@@ -2,18 +2,17 @@
 co-hosted robots, and the uuid merge of other robots' graphs.
 
 Counterpart of the JAX package's models/graph_database.py
-(src/mrg_slam/graph_database.cpp) without its persistence merges: it owns
-the keyframes and edges (uuid-keyed), the odometry keyframe queue, the
-queue of other robots' delta graphs and their merge (`flush_graph_queue`),
+(src/mrg_slam/graph_database.cpp): it owns the keyframes and edges
+(uuid-keyed), the four ingest queues (odometry keyframes, static
+keyframes, other robots' delta graphs, loaded graphs) and their flushes,
 one anchor node per robot chain, and loop insertion; the pose graph is
 the GraphSLAM builder on the device. One store can hold several robots'
 chains (models/shared_graph.py), each with its own previous keyframe,
 anchor and keyframe counter; the singular `prev_robot_keyframe`,
 `anchor_kf`, `anchor_edge` and `odom_keyframe_counter` are the own
-robot's views of that state. The static-keyframe and loaded-graph queues
-exist, and their flushes return False while they are empty; anything
-queued there raises NotImplementedError, since their merges wait for
-ROADMAP.md queue 1 item 16 (persistence).
+robot's views of that state. Loaded graphs come from
+models/persistence.load_graph (checkpoint resume and multi-session
+mapping).
 
 `queue_lock` guards every queue's append and every flush's swap: the
 optimization tick may run on a worker thread while scans come in
@@ -142,6 +141,12 @@ class GraphDatabase:
         with self.queue_lock:
             self.keyframe_queue.append(kf)
         return kf
+
+    def add_static_keyframes(self, keyframes: Sequence[KeyFrame]) -> None:
+        """Queue keyframes a map server provides; they become fixed
+        nodes at their `odom` poses in the next flush."""
+        with self.queue_lock:
+            self.static_keyframe_queue.extend(keyframes)
 
     def add_graph_msg(self, msg) -> None:
         """Queue another robot's delta graph (a GraphMsg) for the next
@@ -343,21 +348,105 @@ class GraphDatabase:
         return True
 
     # ------------------------------------------------------------------
-    # flush: the queues whose merges are not ported yet
+    # flush: static keyframes (map-server provided, fixed nodes)
     # ------------------------------------------------------------------
-    def _refuse(self, queue: list, what: str) -> bool:
-        with self.queue_lock:
-            if queue:
-                raise NotImplementedError(
-                    f"{what} are not ported yet: they wait for ROADMAP.md "
-                    "queue 1 item 16 (persistence and tooling)")
-        return False
-
     def flush_static_keyframe_queue(self) -> bool:
-        return self._refuse(self.static_keyframe_queue, "static keyframes")
+        """graph_database.cpp:199: a fixed node a keyframe at its `odom`
+        pose, no odometry chain; they graduate with the next loop
+        insertion. Returns whether anything was queued."""
+        with self.queue_lock:
+            if not self.static_keyframe_queue:
+                return False
+            batch, self.static_keyframe_queue = self.static_keyframe_queue, []
+        for kf in batch:
+            kf.static_keyframe = True
+            kf.node_id = self.graph.add_se3_node(kf.odom, fixed=True)
+            self.uuid_keyframe_map[kf.uuid] = kf
+            self.new_keyframes.append(kf)
+        return True
 
-    def flush_loaded_graph(self) -> bool:
-        return self._refuse(self.loaded_graph_queue, "loaded graphs")
+    # ------------------------------------------------------------------
+    # flush: loaded graphs (checkpoint resume, multi-session continuation)
+    # ------------------------------------------------------------------
+    def add_loaded_graph(self, keyframes: Sequence[KeyFrame],
+                         edges: Sequence[Edge]) -> None:
+        """Queue a saved graph read by models/persistence.load_graph
+        (load_graph_service -> the loaded queue, graph_database.cpp:
+        393-483)."""
+        with self.queue_lock:
+            self.loaded_graph_queue.append((list(keyframes), list(edges)))
+
+    def flush_loaded_graph(self, loop_manager=None) -> bool:
+        """graph_database.cpp:486-568: merge loaded keyframes and edges by
+        uuid.
+
+        Unlike the merge of other robots' graphs (`flush_graph_queue`), a
+        node is created at the saved estimate, a static keyframe becomes
+        a fixed node and graduates at once, an anchor edge re-attaches to
+        this store's own anchor (made here, fixed at identity, in a fresh
+        store), a loaded loop edge is registered with `loop_manager` under
+        accum-distance-keeps-newest, and each edge keeps the robust kernel
+        saved with it (the reference takes the config's, :512-515; the
+        saved one is the same under default configs). Returns whether
+        anything was queued."""
+        with self.queue_lock:
+            if not self.loaded_graph_queue:
+                return False
+            batches, self.loaded_graph_queue = self.loaded_graph_queue, []
+        for keyframes, edges in batches:
+            for kf in keyframes:
+                if kf.uuid in self.uuid_keyframe_map:
+                    continue
+                kf.node_id = self.graph.add_se3_node(
+                    kf.odom if kf.estimate_loaded is None
+                    else kf.estimate_loaded, fixed=kf.static_keyframe)
+                self.uuid_keyframe_map[kf.uuid] = kf
+                (self.keyframes if kf.static_keyframe
+                 else self.new_keyframes).append(kf)
+            for edge in edges:
+                if edge.uuid in self.edge_uuids:
+                    continue
+                kf_from = (self._own_anchor_for_load(edge)
+                           if edge.type == EDGE_ANCHOR
+                           else self.uuid_keyframe_map.get(edge.from_uuid))
+                kf_to = self.uuid_keyframe_map.get(edge.to_uuid)
+                if kf_from is None or kf_to is None:
+                    continue
+                edge.edge_id = self.graph.add_se3_edge(
+                    kf_from.node_id, kf_to.node_id, edge.relative_pose,
+                    edge.information, kernel=edge.robust_kernel,
+                    kernel_delta=edge.robust_kernel_size)
+                self._register_edge(edge)
+                if edge.type == EDGE_ODOM:
+                    # the reference wires the prev edge only past the
+                    # chain's second keyframe (graph_database.cpp:545-552)
+                    if kf_from.odom_counter > 1:
+                        kf_from.prev_edge = edge
+                    kf_to.next_edge = edge
+                if edge.type == EDGE_LOOP and loop_manager is not None:
+                    loop_manager.add_loop_accum_distance_check(Loop(
+                        key1=kf_from, key2=kf_to,
+                        relative_pose=edge.relative_pose))
+        return True
+
+    def _own_anchor_for_load(self, edge: Edge) -> KeyFrame:
+        """The node a loaded anchor edge re-attaches to: this store's own
+        anchor (graph_database.cpp:518-521), made here fixed at identity
+        when the store has none yet. The loaded anchor's uuid becomes an
+        alias of it, so a re-save and the g2o export resolve the edge
+        without rewriting its stored uuids."""
+        if self.anchor_kf is None:
+            anchor_kf = KeyFrame(
+                robot_name=self.own_name, stamp=0.0,
+                odom=se3np.pose_identity(), accum_distance=-1.0,
+                cloud=PointCloud.empty(1, device=self.graph.device),
+                slam_uuid=self.slam_uuid, odom_counter=-1)
+            anchor_kf.node_id = self.graph.add_se3_node(
+                se3np.pose_identity(), fixed=True)
+            self.uuid_keyframe_map[anchor_kf.uuid] = anchor_kf
+            self._anchors[self.own_name] = (anchor_kf, edge)
+        self.uuid_keyframe_map.setdefault(edge.from_uuid, self.anchor_kf)
+        return self.anchor_kf
 
     # ------------------------------------------------------------------
     # loops

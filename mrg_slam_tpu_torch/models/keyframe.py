@@ -40,6 +40,9 @@ class KeyFrame:
     first_keyframe: bool = False
     static_keyframe: bool = False
     node_id: Optional[int] = None    # graph node index once flushed
+    # the saved estimate a loaded keyframe's node is created at
+    # (estimate_transform, graph_database.cpp:500)
+    estimate_loaded: Optional[np.ndarray] = None
     # the cloud with its GICP covariances, made once for the pair program
     # (models/pair_runner.py) or handed over by the front end
     gicp: Optional[GICPCloud] = None

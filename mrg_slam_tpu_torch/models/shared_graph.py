@@ -184,7 +184,8 @@ class SharedGraphSlam:
         flushed = bool(pending_edges)
         flushed |= self.db.flush_static_keyframe_queue()
         flushed |= self.db.flush_graph_queue()
-        flushed |= self.db.flush_loaded_graph()
+        flushed |= self.db.flush_loaded_graph(
+            self.loop_detector.loop_manager)
         by_robot: Dict[str, List] = {}
         for k in self.db.keyframes + self.db.new_keyframes:
             if k.odom_counter >= 0:

@@ -372,19 +372,37 @@ def test_unported_features_raise(world, change, item):
 
 
 def test_unported_queues_raise_only_when_used():
-    """The static-keyframe and loaded-graph queues raise once used (item
-    16); the other robots' graph queue (the exchange, once refused here)
-    merges: a delta graph without keyframes records the sender's latest
-    keyframe."""
+    """Every ingest queue merges in a tick once used: the static-keyframe
+    and loaded-graph queues (ROADMAP item 16, once refused here) and the
+    other robots' graph queue (the exchange, once refused here too). A static keyframe becomes a fixed node at its pose and
+    graduates at once; a loaded keyframe becomes a node at its saved
+    estimate; a delta graph without keyframes records the sender's
+    latest keyframe. An empty tick does nothing."""
     from mrg_slam_tpu_torch.parallel.messages import GraphMsg
     slam = MrgSlam(SLAM, device="cpu")
     assert slam.optimization_tick() is None  # nothing queued, nothing done
-    for queue, item in (("static_keyframe_queue", "item 16"),
-                        ("loaded_graph_queue", "item 16")):
-        getattr(slam.db, queue).append(object())
-        with pytest.raises(NotImplementedError, match=item):
-            slam.optimization_tick()
-        getattr(slam.db, queue).clear()
+    pts = np.random.default_rng(5).uniform(-3, 3, (64, 3))
+    pose = np.asarray([2.0, 1.0, 0, 1, 0, 0, 0], np.float32)
+    static = KeyFrame(robot_name="map", stamp=0.0, odom=pose,
+                      accum_distance=-1.0,
+                      cloud=PointCloud.from_array(pts, CAP, device="cpu"))
+    slam.db.add_static_keyframes([static])
+    assert slam.optimization_tick() is not None
+    assert not slam.db.static_keyframe_queue
+    assert static.static_keyframe and static in slam.db.keyframes
+    assert slam.db.graph.fixed[static.node_id]
+    np.testing.assert_array_equal(slam.db.graph.poses[static.node_id], pose)
+    loaded = KeyFrame(robot_name="earlier", stamp=1.0, odom=pose,
+                      accum_distance=0.0,
+                      cloud=PointCloud.from_array(pts, CAP, device="cpu"))
+    loaded.estimate_loaded = np.asarray([5.0, -1.0, 0, 1, 0, 0, 0],
+                                        np.float32)
+    slam.db.add_loaded_graph([loaded], [])
+    assert slam.optimization_tick() is not None
+    assert not slam.db.loaded_graph_queue
+    assert not slam.db.graph.fixed[loaded.node_id]
+    np.testing.assert_array_equal(slam.db.graph.poses[loaded.node_id],
+                                  loaded.estimate_loaded)
     slam.db.add_graph_msg(GraphMsg("bestla", "u", se3np.pose_identity(),
                                    [], []))
     assert slam.optimization_tick() is not None

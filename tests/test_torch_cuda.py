@@ -918,3 +918,98 @@ def test_two_robot_exchange_on_the_card_matches_the_cpu(dev):
         other = [o for o in names if o != n][0]
         np.testing.assert_allclose(g.others_odom2map[other],
                                    c.others_odom2map[other], atol=1e-2)
+
+
+# -- the launch path: per-frame count and moments at 8192 lanes, the loaded
+# keyframes' covariance pass, persistence on the card ---------------------
+
+def _moments_within_bound(p, mask, r2):
+    m_k = stats_kernel.moments_cuda(p, p, r2, mask, mask)
+    m_p = stats_kernel.moments_plain(p, p, r2, mask, mask)
+    torch.cuda.synchronize()
+    assert (m_k[~mask] == 0).all()
+    c_k, mn_k, v_k = stats_kernel.moments_to_mean_cov(m_k)
+    c_p, mn_p, v_p = stats_kernel.moments_to_mean_cov(m_p)
+    assert torch.equal(c_k[mask], c_p[mask])
+    n_max = float(c_k[mask].max())
+    x = float(p[mask].abs().max())
+    tol_mean = 2 * n_max * U32 * x
+    assert float((mn_k - mn_p)[mask].abs().max()) <= tol_mean
+    assert float((v_k - v_p)[mask].abs().max()) <= (
+        2 * n_max * U32 * x * x + 2 * x * tol_mean)
+
+
+def test_count_kernel_one_frame_of_8192_matches_plain(rng, dev):
+    """RADIUS removal of one frame at the launch path's width (the
+    per-frame prefilter: one row of 8192 voxel means, a masked tail),
+    through `knn.radius_count` as prefilter calls it: exact, one launch."""
+    pts, mask = _voxel_rows(rng, b=1, n=8192)
+    mask[:, 7000:] = False
+    pts, mask = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+    launches = stats_kernel.count_cuda.launches
+    got = knn.radius_count(pts[0], mask[0], 0.5)
+    assert stats_kernel.count_cuda.launches == launches + 1
+    want = stats_kernel.count_plain(pts, mask, stats_kernel.radius_sq(0.5))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want[0]) and want.sum() > 0
+
+
+@pytest.mark.parametrize("b", [1, 16], ids=["one frame", "loaded keyframes"])
+def test_moments_kernel_at_8192_lanes_matches_plain(rng, dev, b):
+    """Moments at the launch path's shapes: one frame of 8192 lanes (the
+    per-frame odometry's covariances) and 16 x 8192 (a covariance pass
+    over loaded keyframes, PairRunner.PREFETCH_BUCKET of them), radius
+    0.6, masked tails of different lengths: within the float32 summation
+    bound of two orders."""
+    pts, mask = _voxel_rows(rng, b=b, n=8192)
+    for i in range(b):
+        mask[i, 8192 - 97 * (i + 1):] = False
+    p = pad_invalid(torch.from_numpy(pts).to(dev),
+                    torch.from_numpy(mask).to(dev)).contiguous()
+    _moments_within_bound(p, torch.from_numpy(mask).to(dev),
+                          stats_kernel.radius_sq(0.6))
+
+
+def test_graph_saved_on_the_card_loads_byte_identical(dev, tmp_path):
+    """A graph built on the card is saved (one packed read of the
+    clouds), loaded into a fresh store on the card (clouds uploaded
+    there), flushed and saved again: keyframes/ and edges/ byte for
+    byte; its first tick matches the same load on the CPU."""
+    import filecmp
+
+    from mrg_slam_tpu_torch.config import (InformationMatrixConfig,
+                                           OptimizerConfig, SlamConfig)
+    from mrg_slam_tpu_torch.models import persistence
+    from mrg_slam_tpu_torch.models.backend import MrgSlam
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud
+
+    cfg = SlamConfig(capacity_keyframes=32, capacity_edges=64,
+                     capacity_keyframe_points=256,
+                     optimizer=OptimizerConfig(solver_backend="dense"),
+                     inf_matrix=InformationMatrixConfig(
+                         use_const_inf_matrix=True))
+    slam = MrgSlam(cfg, device=dev)
+    r = np.random.default_rng(3)
+    for i in range(5):
+        slam.db.add_odom_keyframe(
+            float(i), np.asarray([i, 0.1 * i, 0, 1, 0, 0, 0], np.float32),
+            float(i), PointCloud.from_array(
+                r.uniform(-2, 2, (100 + i, 3)), capacity=256, device=dev))
+    slam.optimization_tick(now=5.0)
+    persistence.save_graph(slam, tmp_path / "a")
+    out = {}
+    for device in (dev, "cpu"):
+        s2 = MrgSlam(cfg, device=device)
+        assert persistence.load_graph(s2, tmp_path / "a") == 5
+        assert all(k.cloud.points.device.type == torch.device(device).type
+                   for k in s2.db.loaded_graph_queue[0][0])
+        s2.db.flush_loaded_graph(s2.loop_detector.loop_manager)
+        persistence.save_graph(s2, tmp_path / str(device))
+        s2.optimization_tick(now=6.0)
+        out[str(device)] = s2.db.keyframe_estimates()
+    for sub in ("keyframes", "edges"):
+        for d in sorted((tmp_path / "a" / sub).iterdir()):
+            for f in d.iterdir():
+                assert filecmp.cmp(f, tmp_path / str(dev) / sub / d.name
+                                   / f.name, shallow=False)
+    np.testing.assert_allclose(out[str(dev)], out["cpu"], atol=1e-4)

@@ -37,7 +37,8 @@ print("NAMES", sorted(n for n in sys.modules
 """
 
 # the back end's, the co-hosting's, the replay's, the floor and sensor
-# processors' and the exchange's modules, which the walk above must reach
+# processors', the exchange's and the launch path's modules, which the
+# walk above must reach
 _BACK_END = ("config", "convert", "utils.se3np", "ops.registration",
              "ops.fitness", "graph.types", "graph.robust", "graph.edges",
              "graph.solve", "graph.builder", "models.keyframe",
@@ -50,7 +51,9 @@ _BACK_END = ("config", "convert", "utils.se3np", "ops.registration",
              "utils.tum", "utils.geodesy", "utils.nmea", "ops.ransac",
              "ops.ground_fill", "models.floor_detection",
              "models.processors", "models.coordinator",
-             "pipeline.multirobot_split")
+             "pipeline.multirobot_split", "io.rosbag", "io.kitti",
+             "models.persistence", "models.markers", "pipeline.bagfleet",
+             "launch")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -61,7 +64,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     loaded = int(re.search(r"LOADED (\d+)", out.stdout).group(1))
-    assert loaded >= 57  # every module of the package was imported
+    assert loaded >= 63  # every module of the package was imported
     names = out.stdout.split("NAMES", 1)[1]
     for m in _BACK_END:
         assert f"'mrg_slam_tpu_torch.{m}'" in names, m
@@ -73,7 +76,7 @@ _IMPORT = re.compile(
 
 def test_port_sources_name_neither_jax_nor_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 58
+    assert len(files) >= 64
     for m in _BACK_END:
         assert PORT / (m.replace(".", "/") + ".py") in files, m
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
@@ -85,7 +88,7 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
     assert not _IMPORT.search("from mrg_slam_tpu_torch.ops import knn")
 
 
-def test_entry_points_refuse_a_missing_card():
+def test_entry_points_refuse_a_missing_card(tmp_path):
     """Without device=..., an entry point wants the card and raises when
     there is none, instead of running on the CPU."""
     if torch.cuda.is_available():
@@ -106,6 +109,19 @@ def test_entry_points_refuse_a_missing_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         carry_from_numpy(carry)
     assert resolve_device("cpu").type == "cpu"
+    # the command line wants the card too unless --device says otherwise,
+    # and raises before it reads a dataset
+    from mrg_slam_tpu_torch import launch
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.main(["--dataset", "kitti", "--kitti-root",
+                     str(ROOT / "tests" / "data" / "kitti_mini"),
+                     "--output", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.main(["--dataset", "rosbag", "--bag",
+                     str(tmp_path / "no_such.db3"), "--robots", "a,b",
+                     "--output", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
 
 
 def test_runtime_pins_full_float32():
