@@ -114,7 +114,25 @@ drives two paths at full width on bench.py's production world:
   number is held to `tools/launch_reference.py`'s (REF_LAUNCH); count at
   one frame of 8192 lanes, moments there and at the loaded keyframes'
   covariance pass, and nn at session 2's largest pair bucket are held to
-  their plain versions and timed.
+  their plain versions and timed. A few frames of session 1 also run
+  under the port's `utils.profiling.trace`, for the device-busy share of
+  the per-frame path;
+- robots as separate processes (the processes phase):
+  `pipeline.multiprocess.run_multiprocess` on the card at the JAX
+  package's width (`_default_cfg()`, world seed 11, PROC_FRAMES frames,
+  a tick every PROC_TICK) with R = 2 and R = 4 robot processes, each with
+  its own CUDA context on the one card and delta graphs over TCP. Per
+  robot it prints frames/s, keyframes, merged remote keyframes, loops,
+  inter-robot loops, ATE, graph bytes, the publish_graph calls (ms, host
+  reads each), host reads a frame, kernel launches and peak card memory;
+  per R the aggregate robot-frames/s beside row 4 in one process and the
+  card's used memory. Every robot is held to the JAX package's CPU run of
+  the same arguments (`tools/multiprocess_reference.py`, REF_PROC) in the
+  multi-robot bands, with one host read a publish_graph. Then two
+  processes of this script (`--kernel-worker`) launch nn and moments at
+  the workers' shapes at the same time, nn bitwise and moments within the
+  summation bound of its plain version on every launch; nn and moments
+  are then timed at one worker frame.
 
 Any failed check raises. The last line of standard output is {"ok": true,
 "device": {...}}; the line before it lists every kernel with its
@@ -254,6 +272,38 @@ REF_LAUNCH = {
                       inter_robot_loops=15, remote_keyframes=24),
         "bestla": dict(ate_m=0.04177116757378762, keyframes=24, loops=27,
                        inter_robot_loops=15, remote_keyframes=24)}}
+# robots as separate processes (the processes phase): the JAX package's
+# pipeline/multiprocess.run_multiprocess at its width, not cut:
+# `_default_cfg()` (8192 raw -> 1024 filtered points, no outlier removal),
+# world seed 11, PROC_FRAMES frames of a 12 m circle split into
+# overlapping windows, a tick every PROC_TICK frames, one OS process a
+# robot, delta graphs over TCP in the wire form
+PROC_FRAMES, PROC_TICK, PROC_SEED, PROC_ROBOTS = 80, 15, 11, (2, 4)
+# the JAX package's run of the same arguments on the CPU, per robot
+# (`python tools/multiprocess_reference.py --robots 2 4 --frames 80
+# --tick-every 15`: 129 s and 246 s on the CPU)
+REF_PROC = {
+    2: {"alpha": dict(keyframes=27, remote_keyframes=22, loops=11,
+                      ate_m=0.13352108415226033),
+        "bravo": dict(keyframes=25, remote_keyframes=23, loops=12,
+                      ate_m=0.08085045212650759)},
+    4: {"alpha": dict(keyframes=16, remote_keyframes=44, loops=25,
+                      ate_m=0.08155884054429492),
+        "bravo": dict(keyframes=16, remote_keyframes=44, loops=29,
+                      ate_m=0.07628133110120672),
+        "charlie": dict(keyframes=16, remote_keyframes=44, loops=29,
+                        ate_m=0.09857026381461234),
+        "delta": dict(keyframes=15, remote_keyframes=45, loops=24,
+                      ate_m=0.06480625419160234)}}
+# bytes a keyframe on the wire (tests/test_multiprocess.py:76-78)
+PROC_BYTES_PER_KF = 9000
+# row 4 with both robots in one process, robot-frames/s on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md §6), beside which the processes are printed
+ROW4_ONE_PROCESS_FPS = 9.49
+# the concurrent kernel check: two processes launch nn and moments at the
+# workers' shapes (one 1024-lane frame, a merged pair bucket of
+# PROC_BUCKET rows) for PROC_KERNEL_S seconds each, at the same time
+PROC_BUCKET, PROC_KERNEL_S = 16, 8.0
 # bench.py's multi-robot section (run_multirobot_scaling, bench.py:277-475)
 # at its own width: build_world_and_scans(n_frames=160, laps=1.0)
 # (bench.py:71-81; 32768 raw points a scan, 4096 filtered), a fixed
@@ -2265,6 +2315,52 @@ def check_launch(m):
         raise AssertionError("launch phase: " + "; ".join(bad))
 
 
+def launch_device_share(torch, cfg, frames, work, n=8, warm=4):
+    """Session 1's per-frame path (its config, a fresh `Robot`) on frames
+    warm .. warm + n after `warm` warm-up frames, once unprofiled (wall)
+    and once under the port's `utils.profiling.trace`: wall and device
+    time a frame (the sum of the device activities), the device-busy
+    share of the unprofiled wall, and the Chrome trace it wrote. The
+    kernels' counts are put back as they were: the sessions' counts
+    leave these frames out."""
+    from mrg_slam_tpu_torch.pipeline.replay import Robot
+    from mrg_slam_tpu_torch.utils import profiling
+
+    counts = [(fn, fn.launches) for _, fn in _launch_counters()]
+
+    def steps(robot, idx):
+        for i in idx:
+            robot.step(*frames[i])
+        torch.cuda.synchronize()
+
+    for traced in (False, True):
+        robot = Robot(cfg)
+        steps(robot, range(warm))
+        if traced:
+            with profiling.trace(str(work / "trace")) as prof:
+                steps(robot, range(warm, warm + n))
+        else:
+            t0 = time.perf_counter()
+            steps(robot, range(warm, warm + n))
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    for fn, c in counts:
+        fn.launches = c
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / n
+    trace = work / "trace" / "trace.json"
+    out = dict(frames=n, wall_ms_per_frame=wall_ms,
+               device_ms_per_frame=dev_ms,
+               device_activities_per_frame=len(device) / n,
+               busy=dev_ms / wall_ms, trace_bytes=trace.stat().st_size)
+    log(f"# launch session 1, {n} frames traced (utils.profiling.trace): "
+        f"{wall_ms:.2f} ms of wall a frame unprofiled, device "
+        f"{dev_ms:.3f} ms in {out['device_activities_per_frame']:.0f} "
+        f"activities a frame: device busy {out['busy']:.3f}; Chrome trace "
+        f"{out['trace_bytes'] / 2**20:.1f} MiB")
+    return out
+
+
 def launch_sessions(torch, inp, work):
     """(a) session 1 through the CLI from a bag, (b) save -> load -> save
     of its graph on the card, (c) session 2 continuing from it, the
@@ -2341,6 +2437,7 @@ def launch_sessions(torch, inp, work):
         f"{s1['host_reads_per_frame']:.2f} a frame; launches "
         f"{s1['launches']}; reads a frame by line: "
         + ", ".join(f"{w} {c:.2f}" for w, c in s1["host_read_sources"]))
+    s1["device_share"] = launch_device_share(torch, cfg, frames, work)
 
     # (b) save -> load -> flush (no optimize) -> save, on the card
     slam = MrgSlam(cfg.slam)
@@ -2770,6 +2867,17 @@ def check_moments(torch, sk, pts, r2, name, mask=None):
     m_k = sk.moments_cuda(pts, pts, r2, mask, mask)
     m_p = sk.moments_plain(pts, pts, r2, mask, mask)
     torch.cuda.synchronize()
+    errs = moments_errors(torch, sk, pts, mask, m_k, m_p, name)
+    e_mean, tol_mean, e_cov, tol_cov, n, x, total = errs
+    log(f"# moments {name}: |mean| err {e_mean:.3g} (tol {tol_mean:.3g}), "
+        f"|cov| err {e_cov:.3g} (tol {tol_cov:.3g}), n<={n:.0f}, X={x:.1f}")
+    return max(e_mean, e_cov), total
+
+
+def moments_errors(torch, sk, pts, mask, m_k, m_p, name):
+    """check_moments' test of the kernel's moments m_k against the plain
+    version's m_p -> (mean error, its bound, cov error, its bound, n, X,
+    the neighbour count over the real lanes); raises beyond a bound."""
     if mask is None:
         real = (pts.abs() < 1e5).all(-1)  # moments of pad lanes are unused
     else:
@@ -2787,11 +2895,11 @@ def check_moments(torch, sk, pts, r2, name, mask=None):
     tol_cov = 2 * n * U32 * x * x + 2 * x * tol_mean
     e_mean = float((mean_k - mean_p)[real].abs().max())
     e_cov = float((cov_k - cov_p)[real].abs().max())
-    log(f"# moments {name}: |mean| err {e_mean:.3g} (tol {tol_mean:.3g}), "
-        f"|cov| err {e_cov:.3g} (tol {tol_cov:.3g}), n<={n:.0f}, X={x:.1f}")
     if not (e_mean <= tol_mean and e_cov <= tol_cov):
-        raise AssertionError(f"moments {name}: beyond tolerance")
-    return max(e_mean, e_cov), float(c_k[real].sum())
+        raise AssertionError(f"moments {name}: beyond tolerance: |mean| "
+                             f"err {e_mean:.3g} (tol {tol_mean:.3g}), |cov| "
+                             f"err {e_cov:.3g} (tol {tol_cov:.3g})")
+    return e_mean, tol_mean, e_cov, tol_cov, n, x, float(c_k[real].sum())
 
 
 # ragged rows for the mask checks: (name, where the source rows' valid
@@ -3578,6 +3686,373 @@ def solver_phase(torch, dev, slam_graph):
     return out
 
 
+class CardMemory:
+    """Samples the card's used memory (total - free, every process on
+    it) from a thread of this process while entered; `peak` in bytes."""
+
+    def __init__(self, torch, every_s=0.2):
+        self.torch, self.every_s, self.peak = torch, every_s, 0
+        self._stop = None
+
+    def _run(self):
+        while not self._stop.wait(self.every_s):
+            free, total = self.torch.cuda.mem_get_info(0)
+            self.peak = max(self.peak, total - free)
+
+    def __enter__(self):
+        import threading
+
+        free, total = self.torch.cuda.mem_get_info(0)
+        self.peak = total - free
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def processes_run(torch, R, work):
+    """`run_multiprocess` on the card with R robot processes at the JAX
+    package's width -> its metrics: per robot keyframes, merged remote
+    keyframes, loops, inter-robot loops, ATE, bytes, frames/s, the
+    publish_graph calls (ms, host reads each), host reads a frame,
+    kernel launches and peak card memory (allocated and reserved); the
+    aggregate robot-frames/s (frames summed over the robots / the slowest
+    worker's wall) and the card's used memory sampled from here."""
+    from mrg_slam_tpu_torch.pipeline.multiprocess import run_multiprocess
+
+    t0 = time.perf_counter()
+    with CardMemory(torch) as mem:
+        res = run_multiprocess(n_robots=R, total_frames=PROC_FRAMES,
+                               tick_every=PROC_TICK, world_seed=PROC_SEED,
+                               out_dir=str(work / f"R{R}"))
+    wall = time.perf_counter() - t0
+    slowest = max(r["wall_s"] for r in res.values())
+    frames = sum(r["frames"] for r in res.values())
+    m = dict(robots={}, frames=frames, slowest_wall_s=slowest,
+             phase_wall_s=wall, card_used_peak_bytes=mem.peak,
+             aggregate_frames_per_s=frames / slowest)
+    for name, r in res.items():
+        pub = r["publish_graph"]
+        m["robots"][name] = dict(
+            {k: r[k] for k in ("frames", "keyframes", "remote_keyframes",
+                               "loops", "inter_robot_loops", "ate_m",
+                               "received_bytes", "sent_bytes", "wall_s",
+                               "frames_per_s", "host_reads_per_frame",
+                               "launches", "peak_allocated_bytes",
+                               "peak_reserved_bytes", "device")},
+            publish_calls=len(pub),
+            publish_ms=float(sum(p["ms"] for p in pub)),
+            publish_reads=[p["reads"] for p in pub],
+            publish_keyframes=[p["keyframes"] for p in pub],
+            ref=REF_PROC[R][name])
+    for name, r in m["robots"].items():
+        ref = r["ref"]
+        log(f"# processes R = {R} {name}: {r['frames']} frames at "
+            f"{r['frames_per_s']:.2f} frames/s; keyframes {r['keyframes']} "
+            f"(JAX CPU {ref['keyframes']}), remote keyframes merged "
+            f"{r['remote_keyframes']} ({ref['remote_keyframes']}), loops "
+            f"{r['loops']} ({ref['loops']}), inter-robot loops "
+            f"{r['inter_robot_loops']}, ATE {r['ate_m']:.4f} m "
+            f"({ref['ate_m']:.4f}); graph bytes received "
+            f"{r['received_bytes']} / sent {r['sent_bytes']} for "
+            f"{sum(r['publish_keyframes'])} keyframes sent; "
+            f"{r['publish_calls']} publish_graph calls in "
+            f"{r['publish_ms']:.1f} ms, host reads each "
+            f"{r['publish_reads']}; host reads a frame "
+            f"{r['host_reads_per_frame']:.2f}; launches {r['launches']}; "
+            f"peak card memory {r['peak_allocated_bytes'] / 2**20:.1f} MiB "
+            f"allocated, {r['peak_reserved_bytes'] / 2**20:.1f} MiB "
+            "reserved")
+    log(f"# processes R = {R}: {m['aggregate_frames_per_s']:.2f} "
+        f"robot-frames/s aggregate ({frames} robot-frames, slowest worker "
+        f"{slowest:.1f} s, {wall:.1f} s with process start-up; row 4 in "
+        f"one process: {ROW4_ONE_PROCESS_FPS} robot-frames/s); the "
+        f"card's used memory peaked at {mem.peak / 2**20:.0f} MiB (every "
+        f"process on it, this one's {torch.cuda.memory_reserved() / 2**20:.0f}"
+        " MiB reserved included)")
+    return m
+
+
+def check_processes(R, m):
+    """Every robot: keyframes within 2 of ref's, remote keyframes merged
+    at least one and within max(3, 0.3 ref), ATE at most ref + 0.3 m (the
+    multi-robot run-to-run spread), fewer than PROC_BYTES_PER_KF bytes a
+    keyframe on the wire (graph bytes sent over keyframes sent: at R > 2
+    a robot receives some keyframes from more than one peer, so bytes
+    received over keyframes merged exceeds it), nn and moments launched
+    on the card, and one host
+    read for each publish_graph that sent a keyframe (none for one that
+    sent none); an inter-robot loop in the fleet. ref: the JAX package's
+    run of the same arguments on the CPU (REF_PROC)."""
+    bad = []
+    for name, r in m["robots"].items():
+        ref = r["ref"]
+        if abs(r["keyframes"] - ref["keyframes"]) > 2:
+            bad.append(f"{name}: {r['keyframes']} keyframes, JAX CPU "
+                       f"{ref['keyframes']}")
+        rk, wk = r["remote_keyframes"], ref["remote_keyframes"]
+        if not (rk >= 1 and abs(rk - wk) <= max(3, 0.3 * wk)):
+            bad.append(f"{name}: {rk} remote keyframes merged, JAX CPU {wk}")
+        if not r["ate_m"] <= ref["ate_m"] + MR_ATE_SPREAD:
+            bad.append(f"{name}: ATE {r['ate_m']:.4f} m > "
+                       f"{ref['ate_m'] + MR_ATE_SPREAD:.4f}")
+        sent_kf = sum(r["publish_keyframes"])
+        per_kf = r["sent_bytes"] / max(sent_kf, 1)
+        if not per_kf < PROC_BYTES_PER_KF:
+            bad.append(f"{name}: {per_kf:.0f} bytes a keyframe sent")
+        if r["device"] != "cuda" or r["launches"]["nn"] <= 0 \
+                or r["launches"]["moments"] <= 0:
+            bad.append(f"{name}: on {r['device']}, launches "
+                       f"{r['launches']}")
+        want = [1 if k else 0 for k in r["publish_keyframes"]]
+        if r["publish_reads"] != want:
+            bad.append(f"{name}: publish_graph host reads "
+                       f"{r['publish_reads']} for keyframes "
+                       f"{r['publish_keyframes']}")
+    if not sum(r["inter_robot_loops"] for r in m["robots"].values()):
+        bad.append("no inter-robot loop in the fleet")
+    if bad:
+        raise AssertionError(f"processes R = {R}: " + "; ".join(bad))
+
+
+def kernel_worker_inputs(torch, dev):
+    """The robot workers' kernel inputs, from their world (seed
+    PROC_SEED) and config: PROC_BUCKET + 1 consecutive frames prefiltered
+    to 1024 lanes -> {name: (nn source, target, source mask, target
+    mask)} for one frame and a pair bucket of PROC_BUCKET rows, and
+    {name: (points, mask)} for moments at the same shapes, and r^2."""
+    from mrg_slam_tpu_torch.io.synthetic import (SyntheticWorld,
+                                                 circle_trajectory)
+    from mrg_slam_tpu_torch.ops import stats_kernel as sk
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud, pad_invalid
+    from mrg_slam_tpu_torch.ops.prefilter import prefilter
+    from mrg_slam_tpu_torch.pipeline import multiprocess as mp
+
+    cfg = mp._default_cfg("alpha", ["alpha"], (0.0,) * 6)
+    world = SyntheticWorld.build(seed=PROC_SEED, extent=30.0,
+                                 n_ground=25000, max_points_per_scan=8192,
+                                 noise=0.02)
+    traj = circle_trajectory(PROC_FRAMES, radius=12.0, laps=1.1)
+    clouds = [prefilter(PointCloud.from_array(
+        world.scan(traj[i], seed=i), cfg.prefilter.capacity_raw_points,
+        device=dev), cfg.prefilter) for i in range(PROC_BUCKET + 1)]
+    pts = torch.stack([c.points for c in clouds]).contiguous()
+    mask = torch.stack([c.mask for c in clouds]).contiguous()
+    tgt = pad_invalid(pts, mask).contiguous()
+    k = PROC_BUCKET
+    nn = {"frame": (pts[1:2], tgt[0:1], mask[1:2], mask[0:1]),
+          f"bucket {k}": (pts[1:k + 1], tgt[:k], mask[1:k + 1], mask[:k])}
+    mom = {"frame": (pts[0:1], mask[0:1]), f"bucket {k}": (pts[:k],
+                                                            mask[:k])}
+    r2 = sk.radius_sq(cfg.odometry.registration.reg_covariance_radius)
+    return ({n: tuple(x.contiguous() for x in a) for n, a in nn.items()},
+            {n: tuple(x.contiguous() for x in a) for n, a in mom.items()},
+            r2)
+
+
+def kernel_worker(out_path, sync_dir):
+    """One of the concurrent kernel check's two processes: on the
+    workers' inputs, nn and moments launched again and again for
+    PROC_KERNEL_S seconds once both processes are ready, each result held
+    to its plain version (nn bitwise, moments within check_moments'
+    summation bound); -> a JSON file with its iterations, launches,
+    largest errors and the wall-clock window it launched in."""
+    import torch
+
+    from mrg_slam_tpu_torch.ops import native, nn_kernel as nk
+    from mrg_slam_tpu_torch.ops import stats_kernel as sk
+    from mrg_slam_tpu_torch.runtime import resolve_device
+
+    dev = resolve_device()
+    native.build_all()
+    nn_in, mom_in, r2 = kernel_worker_inputs(torch, dev)
+    nn_ref = {n: nk.nn_plain(*a) for n, a in nn_in.items()}
+    mom_ref = {n: sk.moments_plain(p, p, r2, m, m)
+               for n, (p, m) in mom_in.items()}
+    with open(os.path.join(sync_dir, f"ready.{os.getpid()}"), "w"):
+        pass
+    deadline = time.time() + 300.0
+    while not os.path.exists(os.path.join(sync_dir, "go")):
+        if time.time() > deadline:
+            raise RuntimeError("kernel worker: no go signal")
+        time.sleep(0.005)
+    nn_k0, mom_k0 = nk.nn_cuda.launches, sk.moments_cuda.launches
+    err_nn, err_mom, iters = 0.0, 0.0, 0
+    t0 = time.time()
+    while time.time() - t0 < PROC_KERNEL_S:
+        for n, a in nn_in.items():
+            d, i = nk.nn_cuda(*a)
+            d_p, i_p = nn_ref[n]
+            if not (torch.equal(i, i_p) and torch.equal(
+                    d.view(torch.int32), d_p.view(torch.int32))):
+                raise AssertionError(f"nn {n}: not bitwise its plain "
+                                     "version while another process "
+                                     "launched")
+        for n, (p, m) in mom_in.items():
+            m_k = sk.moments_cuda(p, p, r2, m, m)
+            e = moments_errors(torch, sk, p, m, m_k, mom_ref[n],
+                               f"{n}, concurrent")
+            err_mom = max(err_mom, e[0], e[2])
+        iters += 1
+    t1 = time.time()
+    out = dict(pid=os.getpid(), iterations=iters, window=[t0, t1],
+               nn_launches=nk.nn_cuda.launches - nn_k0,
+               moments_launches=sk.moments_cuda.launches - mom_k0,
+               nn_max_abs_err=err_nn, moments_max_abs_err=err_mom,
+               ms_per_iteration=(t1 - t0) / max(iters, 1) * 1e3,
+               shapes={n: list(a[0].shape) for n, a in nn_in.items()})
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def concurrent_kernels(work):
+    """The concurrent kernel check: two processes of this script
+    (`--kernel-worker`) launch nn and moments on the card at the same
+    time, each holding every result to its plain version; fails if one
+    exits non-zero or if their launch windows overlap by less than half.
+    -> their reports."""
+    sync = work / "sync"
+    sync.mkdir()
+    procs, outs = [], [work / f"kernels.{i}.json" for i in range(2)]
+    logs = [open(work / f"kernels.{i}.log", "w") for i in range(2)]
+    try:
+        for out, lf in zip(outs, logs):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--kernel-worker",
+                 str(out), str(sync)], stdout=lf, stderr=subprocess.STDOUT))
+        deadline = time.time() + 300.0
+        while len(list(sync.glob("ready.*"))) < 2:
+            if time.time() > deadline or any(p.poll() not in (None, 0)
+                                             for p in procs):
+                raise AssertionError("concurrent kernels: a worker did not "
+                                     "get ready")
+            time.sleep(0.01)
+        (sync / "go").touch()
+        for i, p in enumerate(procs):
+            rc = p.wait(timeout=300)
+            if rc != 0:
+                logs[i].flush()
+                tail = (work / f"kernels.{i}.log").read_text()[-3000:]
+                raise AssertionError(f"concurrent kernel worker {i} exited "
+                                     f"{rc}:\n{tail}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for lf in logs:
+            lf.close()
+    reps = [json.loads(o.read_text()) for o in outs]
+    (a0, a1), (b0, b1) = reps[0]["window"], reps[1]["window"]
+    overlap = max(0.0, min(a1, b1) - max(a0, b0))
+    short = min(a1 - a0, b1 - b0)
+    for r in reps:
+        log(f"# concurrent kernels, process {r['pid']}: {r['iterations']} "
+            f"iterations ({r['nn_launches']} nn and {r['moments_launches']} "
+            f"moments launches at {r['shapes']}), "
+            f"{r['ms_per_iteration']:.3f} ms an iteration; nn bitwise its "
+            f"plain version on every launch, moments max |err| "
+            f"{r['moments_max_abs_err']:.3g} within the summation bound")
+    log(f"# concurrent kernels: launch windows overlap {overlap:.2f} s of "
+        f"{short:.2f} s")
+    if overlap < 0.5 * short:
+        raise AssertionError(f"concurrent kernels: windows overlap only "
+                             f"{overlap:.2f} s of {short:.2f} s")
+    return dict(processes=reps, overlap_s=overlap)
+
+
+def processes_kernel_rows(torch, launches):
+    """nn and moments at the robot workers' per-frame shape (one frame of
+    1024 lanes), timed here as the other rows, with the launches the
+    workers counted over the R = 2 and R = 4 runs."""
+    from mrg_slam_tpu_torch.ops import nn_kernel as nk
+    from mrg_slam_tpu_torch.ops import stats_kernel as sk
+
+    where = "the processes phase's workers, R = 2 and 4"
+    nn_in, mom_in, r2 = kernel_worker_inputs(torch, torch.device("cuda"))
+    src, tgt, sm, tm = nn_in["frame"]
+    err = check_nn(torch, nk, src, tgt, "processes frame", sm, tm)
+    a, b = src[sm], tgt[tm]
+
+    def lib_nn():
+        return torch.cdist(a[None], b[None],
+                           compute_mode="donot_use_mm_for_euclid_dist"
+                           ).min(dim=-1)
+
+    pairs = float(sm.sum()) * float(tm.sum())
+    rows = [timed_row(
+        torch, "nn_frame_procs", "mrg_slam_tpu_torch/csrc/nn.cu",
+        "mrg_slam_tpu/ops/pallas_nn.py:48",
+        lambda: nk.nn_cuda(src, tgt, sm, tm),
+        lambda: nk.nn_plain(src, tgt, sm, tm), lib_nn, launches["nn"], err,
+        *bound(pairs, 9, 0, (src.numel() + tgt.numel()) * 4
+               + src.shape[1] * 12), where=where)]
+    pts, mask = mom_in["frame"]
+    err, inside = check_moments(torch, sk, pts, r2, "processes frame", mask)
+    real = pts[mask]
+    feats = torch.cat([torch.ones_like(real[:, :1]), real,
+                       *(real[:, i:i + 1] * real[:, j:j + 1]
+                         for i, j in ((0, 0), (0, 1), (0, 2), (1, 1),
+                                      (1, 2), (2, 2)))], dim=-1)
+    radius = float(np.sqrt(r2))
+
+    def lib_moments():
+        return (torch.cdist(real, real,
+                            compute_mode="donot_use_mm_for_euclid_dist")
+                <= radius).float() @ feats
+
+    n_real = float(mask.sum())
+    rows.append(timed_row(
+        torch, "moments_frame_procs",
+        "mrg_slam_tpu_torch/csrc/radius_stats.cu",
+        "mrg_slam_tpu/ops/pallas_stats.py:93",
+        lambda: sk.moments_cuda(pts, pts, r2, mask, mask),
+        lambda: sk.moments_plain(pts, pts, r2, mask, mask), lib_moments,
+        launches["moments"], err,
+        *bound(n_real * n_real, 9, 16 * inside,
+               pts.numel() * 4 + pts.shape[1] * 40), where=where))
+    return rows
+
+
+def processes_phase(torch):
+    """Robots as separate processes on the card: `run_multiprocess` at
+    R = 2 and R = 4 (one CUDA context a robot on the one card, delta
+    graphs over TCP), every robot held to the JAX package's CPU run of
+    the same arguments; then two processes launching nn and moments at
+    once, each held to the plain versions; then the kernel rows of the
+    workers' frame shape."""
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    # what this process's allocator caches from the earlier phases goes
+    # back to the card before the robot processes start
+    torch.cuda.empty_cache()
+    out, launches = {}, {"nn": 0, "moments": 0, "count": 0}
+    out["parent_reserved_bytes"] = torch.cuda.memory_reserved()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        for R in PROC_ROBOTS:
+            m = processes_run(torch, R, work)
+            check_processes(R, m)
+            out[str(R)] = m
+            for r in m["robots"].values():
+                for k in launches:
+                    launches[k] += r["launches"][k]
+        out["concurrent_kernels"] = concurrent_kernels(work)
+    rows = processes_kernel_rows(torch, launches)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"# processes phase: {out['phase_s']:.1f} s; worker launches over "
+        f"R = 2 and 4: {launches}")
+    return out, rows
+
+
 def main():
     import torch
 
@@ -3700,6 +4175,8 @@ def main():
     rows.extend(exchange_rows)
     launch_m, launch_rows = launch_phase(torch, inp)
     rows.extend(launch_rows)
+    proc_m, proc_rows = processes_phase(torch)
+    rows.extend(proc_rows)
     log(json.dumps({"frames_per_s": fps,
                     "pass1_frames_per_s": FRAMES / sum(run1.block_walls),
                     "ate_m": ate, "ref_ate_m": REF_ATE_M,
@@ -3713,6 +4190,7 @@ def main():
                     "floor": floor_m,
                     "exchange": exchange_m,
                     "launch": launch_m,
+                    "processes": proc_m,
                     "build_s": native.build_seconds}))
     log(f"# smoke run: {time.perf_counter() - t_start:.1f} s, kernel builds "
         "included")
@@ -3724,4 +4202,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--kernel-worker"]:
+        # one process of the processes phase's concurrent kernel check
+        sys.exit(kernel_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -33,6 +33,9 @@ import torch
 from . import native
 
 _FAR = 1e11  # a least d2 above this can only be a PAD_VALUE target
+# distances an nn_plain chunk holds: 4 MB of float32, which the CPU's
+# caches keep through the chunk's nine elementwise passes better than 16
+_CHUNK_ELEMS = 1 << 20
 
 
 def _shapes(src: torch.Tensor, tgt: torch.Tensor) -> Tuple[int, int, int]:
@@ -70,33 +73,48 @@ nn_cuda.launches = 0
 
 def nn_plain(src: torch.Tensor, tgt: torch.Tensor,
              src_mask: Optional[torch.Tensor] = None,
-             tgt_mask: Optional[torch.Tensor] = None, chunk: int = 1024
+             tgt_mask: Optional[torch.Tensor] = None,
+             chunk: Optional[int] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The same function in PyTorch ops, over source chunks.
+    """The same function in PyTorch ops, over chunks of `chunk` source
+    lanes (default: as many as keep a chunk's distances within
+    _CHUNK_ELEMS, so a pair bucket's B x N x M never sits in memory).
 
     d2 is rounded as the kernel rounds it, ((dx*dx + dy*dy) + dz*dz) with
-    no fused multiply-add, so the two agree bit for bit. Targets that take
-    no part are left out, and sources that take no part get (inf, 0), as
-    in the kernel.
+    no fused multiply-add (each product and sum its own rounded op), so
+    the two agree bit for bit. Targets that take no part are left out,
+    and sources that take no part get (inf, 0), as in the kernel; the
+    sources are finite (pads sit at PAD_VALUE). Among equal minima `min`
+    returns the first, the lowest index (pallas_nn.py:57-60).
     """
     b, n, m = _shapes(src, tgt)
+    if tgt_mask is not None:
+        # a target that takes no part sits at +inf: any finite source is
+        # then inf away from it (each axis (x - inf)^2 = inf), as if it
+        # were masked out of every chunk
+        tgt = torch.where(tgt_mask[..., None], tgt, float("inf"))
     tx, ty, tz = (tgt[..., k][:, None, :] for k in range(3))  # (B,1,M)
-    cols = torch.arange(m, device=src.device)
+    chunk = max(1, min(n, chunk or _CHUNK_ELEMS // (b * m)))
+    # two chunk buffers, reused: a fresh tensor an op would cost the CPU
+    # an allocation and its page faults every time
+    dbuf = src.new_empty((b, chunk, m))
+    ebuf = torch.empty_like(dbuf)
     d2s, idxs = [], []
     for s in range(0, n, chunk):
         p = src[:, s:s + chunk]
-        dx = p[..., 0:1] - tx
-        dy = p[..., 1:2] - ty
-        dz = p[..., 2:3] - tz
-        d = dx * dx + dy * dy + dz * dz  # (B, C, M)
-        if tgt_mask is not None:
-            d = d.masked_fill(~tgt_mask[:, None, :], float("inf"))
-        dmin = d.min(dim=-1).values
-        # lowest index among equal minima (pallas_nn.py:57-60)
-        idxs.append(torch.where(d == dmin[..., None], cols, m).min(-1).values)
+        d, e = dbuf[:, :p.shape[1]], ebuf[:, :p.shape[1]]
+        torch.sub(p[..., 0:1], tx, out=d)
+        d.mul_(d)
+        torch.sub(p[..., 1:2], ty, out=e)
+        d.add_(e.mul_(e))
+        torch.sub(p[..., 2:3], tz, out=e)
+        d.add_(e.mul_(e))  # (B, C, M)
+        dmin, imin = d.min(dim=-1)
         d2s.append(dmin)
+        idxs.append(imin)
     d2 = torch.cat(d2s, dim=1) if d2s else src.new_empty((b, 0))
-    idx = torch.cat(idxs, dim=1) if idxs else cols.new_empty((b, 0))
+    idx = torch.cat(idxs, dim=1) if idxs else torch.zeros(
+        (b, 0), dtype=torch.int64, device=src.device)
     d2 = torch.where(d2 > _FAR, torch.full_like(d2, float("inf")), d2)
     if src_mask is not None:
         d2 = d2.masked_fill(~src_mask, float("inf"))

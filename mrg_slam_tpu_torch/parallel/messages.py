@@ -13,9 +13,10 @@ socket transport sends (clouds as uint16 offsets on the host), and
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
+import torch
 
 from ..ops.cloud import PointCloud
 from ..runtime import DeviceLike
@@ -42,19 +43,52 @@ class QuantizedCloud:
         return int(self.offsets.nbytes + 16)
 
 
-def quantize_cloud(cloud: PointCloud, scale: float = 1.0 / 256.0
-                   ) -> QuantizedCloud:
-    """The cloud's wire form, computed on the host in numpy as the JAX
-    package computes it (one read of the cloud)."""
-    pts = cloud.points.cpu().numpy()
-    mask = cloud.mask.cpu().numpy()
+# metres a quantization step of the wire form (QuantizedCloud)
+WIRE_SCALE = 1.0 / 256.0
+
+
+def _quantize_host(pts: np.ndarray, mask: np.ndarray, capacity: int,
+                   scale: float) -> QuantizedCloud:
+    """The wire form of a cloud already on the host, as the JAX package
+    computes it in numpy."""
     valid = pts[mask]
     origin = (valid.min(axis=0) if len(valid)
               else np.zeros(3)).astype(np.float32)
     q = np.clip(np.round((valid - origin) / scale), 0, 65535).astype(
         np.uint16)
     return QuantizedCloud(offsets=q, origin=origin, scale=scale,
-                          capacity=cloud.capacity)
+                          capacity=capacity)
+
+
+def quantize_cloud(cloud: PointCloud, scale: float = WIRE_SCALE
+                   ) -> QuantizedCloud:
+    """The cloud's wire form, computed on the host (one read of the
+    cloud)."""
+    (pts, mask), = _clouds_to_host([cloud])
+    return _quantize_host(pts, mask, cloud.capacity, scale)
+
+
+def _clouds_to_host(clouds: List[PointCloud]
+                    ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Every cloud's (points, mask) as numpy, in one device->host copy:
+    the clouds' bytes packed into one uint8 tensor on their device, read
+    once, and cut up on the host. A read a cloud would sync the stream
+    twice per keyframe of a delta graph."""
+    if not clouds:
+        return []
+    # every cloud's points, then every mask: the float32 runs stay aligned
+    parts = [c.points.reshape(-1).view(torch.uint8) for c in clouds]
+    parts += [c.mask.reshape(-1).view(torch.uint8) for c in clouds]
+    host = torch.cat(parts).cpu().numpy()
+    out, at = [], sum(12 * c.capacity for c in clouds)
+    pts = host[:at].view(np.float32)
+    p0 = 0
+    for c in clouds:
+        n = c.capacity
+        out.append((pts[p0:p0 + 3 * n].reshape(n, 3),
+                    host[at:at + n].view(np.bool_)))
+        p0, at = p0 + 3 * n, at + n
+    return out
 
 
 def dequantize_cloud(qc: QuantizedCloud, device: DeviceLike) -> PointCloud:
@@ -65,11 +99,19 @@ def dequantize_cloud(qc: QuantizedCloud, device: DeviceLike) -> PointCloud:
 
 def quantize_graph_msg(msg: "GraphMsg") -> "GraphMsg":
     """The GraphMsg with its clouds in wire form and its estimates on the
-    host; `wire_nbytes` records what it weighs on the wire."""
-    kfs = [dataclasses.replace(
-        k, cloud=(k.cloud if isinstance(k.cloud, QuantizedCloud)
-                  else quantize_cloud(k.cloud)),
-        estimate=np.asarray(k.estimate)) for k in msg.keyframes]
+    host; `wire_nbytes` records what it weighs on the wire. Every cloud of
+    the message comes off the device in one read (`_clouds_to_host`)."""
+    todo = [k.cloud for k in msg.keyframes
+            if not isinstance(k.cloud, QuantizedCloud)]
+    host = iter(_clouds_to_host(todo))
+    kfs = []
+    for k in msg.keyframes:
+        cloud = k.cloud
+        if not isinstance(cloud, QuantizedCloud):
+            pts, mask = next(host)
+            cloud = _quantize_host(pts, mask, cloud.capacity, WIRE_SCALE)
+        kfs.append(dataclasses.replace(k, cloud=cloud,
+                                       estimate=np.asarray(k.estimate)))
     out = dataclasses.replace(msg, keyframes=kfs)
     out.wire_nbytes = dataclasses.replace(out, wire_nbytes=0).nbytes()
     return out

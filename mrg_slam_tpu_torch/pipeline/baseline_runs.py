@@ -17,12 +17,15 @@ the ring pose graph, the workload of the solver section and of row 5
 plane family (`family_graph_spec`, numpy, for either package's
 GraphSLAM). Each row runs on the card unless `device` says otherwise,
 and returns the JAX package's keys plus the keyframes (rows 4 and 6: the
-exchange's counts too).
+exchange's counts too). `main` (`python -m
+mrg_slam_tpu_torch.pipeline.baseline_runs [out] [--device cpu]`) runs the
+set and writes BASELINE_TORCH.json.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Dict, Optional
 
@@ -515,3 +518,96 @@ def family_graph_capacities(spec: Dict) -> Dict[str, int]:
                     "prior_xyz", "prior_xy", "prior_quat", "prior_vec")),
                 capacity_plane_edges=len(spec["floor_edges"]),
                 capacity_plane_priors=2, capacity_plane_plane=3)
+
+
+# rows of the JAX package's acceptance set that have no port yet, each
+# with the ROADMAP item that brings it
+PENDING = {"5_distributed_mesh_solve":
+           "ROADMAP item 15: the distributed solve (parallel/dist_solver.py,"
+           " config5_distributed) is not ported yet; row 5's single-device "
+           "half runs in chip_smoke.py's solver phase"}
+# what a row dict carries besides its numbers: the stores and the
+# optimized poses stay in memory
+_NOT_SAVED = ("graphs", "keyframe_trajectory")
+
+
+def _jsonable(x):
+    """A row's value as JSON: dicts, lists and numbers; numpy arrays as
+    lists, dataclasses (TickStats) as dicts."""
+    if isinstance(x, dict):
+        return {str(k): _jsonable(v) for k, v in x.items()
+                if k not in _NOT_SAVED}
+    if isinstance(x, (list, tuple)):
+        return [_jsonable(v) for v in x]
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return _jsonable(dataclasses.asdict(x))
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, np.generic):
+        return x.item()
+    return x
+
+
+def card_name() -> str:
+    """The card's name and power limit as nvidia-smi prints them
+    (`--query-gpu=name,power.limit`)."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main(out_path: str = "BASELINE_TORCH.json",
+         device: DeviceLike = None) -> Dict:
+    """Run the acceptance rows and merge them into `out_path`.
+
+    The JAX package's chip row set: rows 1, 2, 3, 4, 6 and 7 and the
+    fused rows 1 and 2, on the card unless `device` says otherwise (with
+    no card and no `device` this raises before a row runs). Card rows
+    land under "results_cuda" with the card's name and power limit
+    beside them, CPU rows under "results", each row tagged with its
+    device; the rows with no port yet are listed under "pending". Other
+    keys of an existing file are kept.
+    """
+    dev = resolve_device(device)
+    results = [config1_odometry_only(device=dev),
+               config2_full_slam(device=dev),
+               config3_floor_augmented(device=dev),
+               config4_two_robot(device=dev),
+               config6_reversed_encounter(device=dev),
+               config7_dynamic_world(device=dev),
+               config1_odometry_only(fused=True, device=dev),
+               config2_full_slam(fused=True, device=dev)]
+    results = [dict(_jsonable(r), device=dev.type) for r in results]
+    try:
+        with open(out_path) as f:
+            payload = json.load(f)
+    except (OSError, json.JSONDecodeError):
+        payload = {}
+    payload["note"] = ("synthetic-world acceptance runs of the PyTorch "
+                       "port (mrg_slam_tpu_torch/pipeline/baseline_runs.py"
+                       "); BASELINE_SYNTH.json is the JAX package's")
+    payload["pending"] = dict(PENDING)
+    if dev.type == "cuda":
+        payload["results_cuda"] = results
+        payload["card"] = card_name()
+    else:
+        payload["results"] = results
+    with open(out_path, "w") as f:
+        json.dump(payload, f, indent=2)
+        f.write("\n")
+    print(json.dumps(results, indent=2))
+    return payload
+
+
+if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("out", nargs="?", default="BASELINE_TORCH.json")
+    ap.add_argument("--device", default=None,
+                    help="torch device to run on (default: the CUDA card)")
+    a = ap.parse_args()
+    main(a.out, device=a.device)

@@ -85,3 +85,37 @@ def rpy_to_quat(roll: float, pitch: float, yaw: float) -> np.ndarray:
         sr * cp * cy - cr * sp * sy,
         cr * sp * cy + sr * cp * sy,
         cr * cp * sy - sr * sp * cy], np.float32)
+
+
+def pose_log(p: np.ndarray) -> np.ndarray:
+    """7-vector pose -> 6-twist [rho, omega] (numpy mirror of se3.pose_log).
+    Host tools (pipeline/inspect.py's chi2 breakdown) evaluate a handful
+    of residuals, so a device round trip for each would cost more than it
+    computes."""
+    p = np.asarray(p, np.float64)
+    q = p[3:7] / max(float(np.linalg.norm(p[3:7])), 1e-12)
+    w, v = q[0], q[1:4]
+    s = float(np.linalg.norm(v))
+    theta = 2.0 * float(np.arctan2(s, w))
+    if theta > np.pi:
+        theta -= 2.0 * np.pi
+    axis = v / s if s > 1e-12 else np.zeros(3)
+    omega = theta * axis
+    th2 = theta * theta
+    W = np.array([[0, -omega[2], omega[1]],
+                  [omega[2], 0, -omega[0]],
+                  [-omega[1], omega[0], 0]], np.float64)
+    if abs(theta) < 1e-5:
+        Vinv = np.eye(3) - 0.5 * W + (1.0 / 12.0) * (W @ W)
+    else:
+        Vinv = (np.eye(3) - 0.5 * W
+                + (1.0 / th2 - (1.0 + np.cos(theta))
+                   / (2.0 * theta * np.sin(theta))) * (W @ W))
+    rho = Vinv @ p[:3]
+    return np.concatenate([rho, omega]).astype(np.float32)
+
+
+def pose_error(meas: np.ndarray, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """EdgeSE3 residual log(meas^-1 * a^-1 * b) (se3.pose_error mirror)."""
+    return pose_log(pose_compose(pose_inverse(np.asarray(meas, np.float32)),
+                                 pose_between(a, b)))

@@ -23,6 +23,9 @@ import importlib, pkgutil, sys
 sys.path.insert(0, {root!r})
 import chip_smoke  # its module-level imports
 import mrg_slam_tpu_torch
+# what a robot process's fresh interpreter imports (pipeline/multiprocess)
+from mrg_slam_tpu_torch.pipeline.multiprocess import WORKER_IMPORT
+exec(WORKER_IMPORT)
 for m in pkgutil.walk_packages(mrg_slam_tpu_torch.__path__,
                                "mrg_slam_tpu_torch."):
     importlib.import_module(m.name)
@@ -37,8 +40,8 @@ print("NAMES", sorted(n for n in sys.modules
 """
 
 # the back end's, the co-hosting's, the replay's, the floor and sensor
-# processors', the exchange's and the launch path's modules, which the
-# walk above must reach
+# processors', the exchange's, the launch path's and the run tooling's
+# and robot processes' modules, which the walk above must reach
 _BACK_END = ("config", "convert", "utils.se3np", "ops.registration",
              "ops.fitness", "graph.types", "graph.robust", "graph.edges",
              "graph.solve", "graph.builder", "models.keyframe",
@@ -53,7 +56,9 @@ _BACK_END = ("config", "convert", "utils.se3np", "ops.registration",
              "models.processors", "models.coordinator",
              "pipeline.multirobot_split", "io.rosbag", "io.kitti",
              "models.persistence", "models.markers", "pipeline.bagfleet",
-             "launch")
+             "launch", "utils.profiling", "pipeline.tools",
+             "pipeline.inspect", "parallel.channel",
+             "pipeline.multiprocess")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -64,7 +69,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     loaded = int(re.search(r"LOADED (\d+)", out.stdout).group(1))
-    assert loaded >= 63  # every module of the package was imported
+    assert loaded >= 68  # every module of the package was imported
     names = out.stdout.split("NAMES", 1)[1]
     for m in _BACK_END:
         assert f"'mrg_slam_tpu_torch.{m}'" in names, m
@@ -76,7 +81,7 @@ _IMPORT = re.compile(
 
 def test_port_sources_name_neither_jax_nor_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 64
+    assert len(files) >= 69
     for m in _BACK_END:
         assert PORT / (m.replace(".", "/") + ".py") in files, m
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
@@ -122,6 +127,31 @@ def test_entry_points_refuse_a_missing_card(tmp_path):
                      str(tmp_path / "no_such.db3"), "--robots", "a,b",
                      "--output", str(tmp_path / "out")])
     assert not (tmp_path / "out").exists()
+    # robot processes and the acceptance-set runner: they raise before
+    # they spawn a worker, run a row or write a file
+    from mrg_slam_tpu_torch.pipeline import baseline_runs, multiprocess
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multiprocess.run_multiprocess(out_dir=str(tmp_path / "mp"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multiprocess.main(["--robots", "2", "--out", str(tmp_path / "mp")])
+    assert not (tmp_path / "mp").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        baseline_runs.main(str(tmp_path / "BASELINE_TORCH.json"))
+    assert not (tmp_path / "BASELINE_TORCH.json").exists()
+
+
+def test_worker_bootstrap_imports_the_port_only():
+    """The robot process's bootstrap names the port's module and sets no
+    JAX variable of its own."""
+    from mrg_slam_tpu_torch.pipeline import multiprocess
+
+    assert multiprocess.WORKER_IMPORT in multiprocess.BOOTSTRAP
+    assert not _IMPORT.search(multiprocess.BOOTSTRAP.replace("; ", "\n"))
+    env = multiprocess._worker_env()
+    assert str(ROOT) in env["PYTHONPATH"].split(os.pathsep)
+    assert {k for k in env if k.startswith("JAX")} == {
+        k for k in os.environ if k.startswith("JAX")}
 
 
 def test_runtime_pins_full_float32():
