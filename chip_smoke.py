@@ -42,9 +42,7 @@ drives two paths at full width on bench.py's production world:
   and timed at this path's shapes (nn at 4 x 4096 odometry rows and at
   the run's largest pair bucket, count and moments on 48 x 4096);
 - the large-graph solvers (bench.py:478-564, `run_solvers`) at bench's
-  width: acceptance row 5's single-device half (cg LM, 40 iterations, on
-  `build_ring_graph(256)`, chi2 held to 1.96797), bench's ring with n/128
-  Huber chords solved with 64 LM iterations by the dense and chain
+  width: bench's ring with n/128 Huber chords solved with 64 LM iterations by the dense and chain
   backends at 1024 nodes and by the chain backend at 8192 (chi2 held to
   the JAX package's on the CPU, `tools/solver_reference.py`, and dense
   against chain), a profiled 1024-node chain solve, chain marginals at
@@ -132,7 +130,26 @@ drives two paths at full width on bench.py's production world:
   processes of this script (`--kernel-worker`) launch nn and moments at
   the workers' shapes at the same time, nn bitwise and moments within the
   summation bound of its plain version on every launch; nn and moments
-  are then timed at one worker frame.
+  are then timed at one worker frame;
+- the distributed solve (the distributed phase): acceptance row 5
+  through `baseline_runs.config5_distributed`, `build_ring_graph(256)`
+  by the cg LM (40 iterations) on one device and over DIST_RANKS ranks,
+  processes sharing the card in one gloo group; both chi2 held to
+  1.96797 within 1e-3, the poses to the one-device solve within
+  DIST_POSE_ATOL, every rank bitwise equal. It prints the solve walls,
+  the reductions an LM iteration and their ms, and each rank's peak
+  memory. Then `parallel.dryrun.dryrun_multichip` over the same ranks
+  (256 nodes with every family by dense LM, 2048 nodes by the chain
+  backend's split panels) under the JAX dry run's asserts. No hand
+  kernel runs here;
+- acceptance row 2 with the voxel family (the voxel phase): row 2 at
+  its width through `baseline_runs.config2_full_slam(registration_method
+  =...)` with FAST_VGICP and with NDT, per frame, held to the JAX
+  package's runs (`tools/voxel_reference.py`, REF_VOXEL): loops, and
+  where the reference keeps the track ATE and keyframes (NDT loses it
+  in both packages, ROADMAP §3 B12); both methods recovering a known
+  pose on tests/test_registration.py's structured scene; nn bitwise
+  and timed at the largest voxel pair bucket (`nn_pairs_voxel`).
 
 Any failed check raises. The last line of standard output is {"ok": true,
 "device": {...}}; the line before it lists every kernel with its
@@ -297,6 +314,27 @@ REF_PROC = {
                       ate_m=0.06480625419160234)}}
 # bytes a keyframe on the wire (tests/test_multiprocess.py:76-78)
 PROC_BYTES_PER_KF = 9000
+# the distributed phase: row 5's distributed half (build_ring_graph(256),
+# cg, 40 LM iterations) over DIST_RANKS ranks, processes sharing the card
+# by gloo; chi2 held to ROW5_CHI2 within 1e-3 and the poses to the
+# one-device solve within DIST_POSE_ATOL (tests/test_distributed.py's
+# atol for this graph; the JAX run's divergence was 0.0027 m,
+# BASELINE_SYNTH.json)
+DIST_RANKS = 8
+DIST_POSE_ATOL = 0.02
+# acceptance row 2 at its width with the voxel family (the default
+# resolution 1.0 and DIRECT7), the JAX package's `replay` of the same
+# frames on the CPU (`python tools/voxel_reference.py`, 68 s). NDT
+# diverges there: at 1.0 m a 1024-point scan of this world leaves a few
+# cells of 4 points, so the odometry loses the track (ROADMAP §3 B12)
+REF_VOXEL = {
+    "FAST_VGICP": dict(ate_m=0.2342230331475984, rpe_m=0.10171133244299076,
+                       loops=7, keyframes=40),
+    "NDT": dict(ate_m=14.363736541480275, rpe_m=6.597846854124117,
+                loops=0, keyframes=14)}
+# a reference run with an ATE above this has lost the track: its ATE
+# bounds nothing (B12), and its keyframes and loops are held instead
+DIVERGED_ATE_M = 1.0
 # row 4 with both robots in one process, robot-frames/s on an NVIDIA H100
 # 80GB HBM3 at 700 W (PERF.md §6), beside which the processes are printed
 ROW4_ONE_PROCESS_FPS = 9.49
@@ -3605,19 +3643,13 @@ def default_capacity_tick(torch, slam_graph, dev):
 
 
 def solver_phase(torch, dev, slam_graph):
-    """bench.py's solver section on the card at its own width, row 5's
-    single-device half, and the default-capacity tick -> metrics."""
+    """bench.py's solver section on the card at its own width and the
+    default-capacity tick -> metrics (row 5's single-device half runs in
+    the distributed phase, beside its distributed half)."""
     from mrg_slam_tpu_torch.graph import chain_solver, solve
-    from mrg_slam_tpu_torch.pipeline.baseline_runs import build_ring_graph
 
     t_phase = time.perf_counter()
     out = {}
-    g5 = build_ring_graph(256, device=dev).snapshot()
-    out["cg_256"], _ = timed_solve(torch, g5, "cg", 40,
-                                   "cg 256 nodes (row 5)")
-    out["cg_256"]["chi2_rel_row5"] = check_chi2(
-        "cg 256", out["cg_256"]["chi2_final"], ROW5_CHI2, "row 5's")
-
     solved = {}
     for n, backend in ((1024, "dense"), (1024, "chain"), (8192, "chain")):
         name = f"{backend}_{n}"
@@ -4053,6 +4085,238 @@ def processes_phase(torch):
     return out, rows
 
 
+# ---------------------------------------------------------------------------
+# the distributed solve over ranks on the card
+# ---------------------------------------------------------------------------
+
+def dist_phase(torch):
+    """Row 5's distributed half (`baseline_runs.config5_distributed`:
+    `build_ring_graph(256)`, cg, 40 LM iterations, DIST_RANKS ranks as
+    processes on the one card, gloo, CUDA tensors) held to ROW5_CHI2 and to
+    the one-device solve; the dry run (`parallel.dryrun.dryrun_multichip`:
+    256 nodes with every family by dense LM, 2048 nodes by the chain
+    backend's split panels) under its own asserts; with the reductions'
+    count and host wall. Every rank must return the same bits."""
+    from mrg_slam_tpu_torch.parallel import dryrun
+    from mrg_slam_tpu_torch.pipeline import baseline_runs as bl
+
+    t0 = time.perf_counter()
+    with CardMemory(torch) as mem:
+        row = bl.config5_distributed(n_nodes=256, n_ranks=DIST_RANKS)
+    rel = abs(row["chi2_distributed"] - ROW5_CHI2) / ROW5_CHI2
+    row["chi2_rel_row5_single"] = check_chi2(
+        "row 5, one device", row["chi2_single"], ROW5_CHI2, "row 5's")
+    per_it = row["all_reduces"] / max(row["lm_iterations"], 1)
+    log(f"# row 5 distributed ({DIST_RANKS} ranks, {row['backend']}): chi2 "
+        f"{row['chi2_distributed']:.6f} (one device {row['chi2_single']:.6f}"
+        f", BASELINE_SYNTH {ROW5_CHI2:.6f}, rel {rel:.2e}); largest pose "
+        f"divergence {row['max_pose_divergence_m']:.2e} m; ranks bitwise "
+        f"equal: {row['ranks_bitwise_equal']}; solve "
+        f"{row['distributed_solve_s'] * 1e3:.1f} ms over {DIST_RANKS} ranks "
+        f"against {row['single_solve_s'] * 1e3:.1f} ms on one device; "
+        f"{row['lm_iterations']} LM and {row['cg_iterations']} CG "
+        f"iterations, {row['all_reduces']} reductions over the ranks "
+        f"({per_it:.1f} an LM iteration, {row['all_reduce_ms']:.3f} ms "
+        f"each); peak allocated a rank (MiB) "
+        f"{[round(b / 2**20, 1) for b in row['peak_allocated_bytes']]}; "
+        f"the card's used memory peaked at {mem.peak / 2**20:.0f} MiB")
+    if not row["ranks_bitwise_equal"]:
+        raise AssertionError("row 5: the ranks' poses differ")
+    if not rel < 1e-3:
+        raise AssertionError(f"row 5 distributed chi2 "
+                             f"{row['chi2_distributed']} vs {ROW5_CHI2}")
+    if not row["max_pose_divergence_m"] < DIST_POSE_ATOL:
+        raise AssertionError(f"row 5 pose divergence "
+                             f"{row['max_pose_divergence_m']} m")
+    row["card_used_peak_bytes"] = mem.peak
+    dry = dryrun.dryrun_multichip(DIST_RANKS)
+    log(f"# a reduction over {DIST_RANKS} ranks (host wall, rank 0's mean): "
+        f"row 5's cg {row['all_reduce_ms']:.3f} ms (256 x 6 floats an H v),"
+        f" the dry run's dense {dry['dense']['all_reduce_ms']:.3f} ms (the "
+        f"(D, D) Hessian, D = 1596) and chain "
+        f"{dry['chain']['all_reduce_ms']:.3f} ms")
+    phase_s = time.perf_counter() - t0
+    log(f"# distributed phase: {phase_s:.1f} s")
+    return dict(row5=row, dryrun=dry, phase_s=phase_s)
+
+
+# ---------------------------------------------------------------------------
+# acceptance row 2 with the voxel registration family
+# ---------------------------------------------------------------------------
+
+class VoxelBucketRecorder(BucketRecorder):
+    """BucketRecorder over `registration.align_pairs_voxel_packed`: keeps
+    the largest voxel pair bucket's raw target clouds, sources and initial
+    poses (what its fitness pass searches)."""
+
+    def __init__(self, reg):
+        self.reg, self.fn, self.largest = (reg, reg.align_pairs_voxel_packed,
+                                           None)
+
+    def __enter__(self):
+        self.reg.align_pairs_voxel_packed = self
+        return self
+
+    def __exit__(self, *exc):
+        self.reg.align_pairs_voxel_packed = self.fn
+
+    def __call__(self, params, maps, clouds, srcs, init_poses, *rest):
+        if self.largest is None or len(clouds) > len(self.largest[0]):
+            self.largest = (list(clouds), list(srcs),
+                            np.array(init_poses, np.float32))
+        return self.fn(params, maps, clouds, srcs, init_poses, *rest)
+
+
+def check_voxel(method, m):
+    """Loops within max(2, 0.2 ref) of the JAX package's on the CPU, a
+    loop where it has one; where the reference kept the track (ATE under
+    DIVERGED_ATE_M), ATE within max(ref + 0.05 m, 1.2 ref) and keyframes
+    within 2 of ref's; where it lost it (NDT, B12), a run that loses it
+    too (its ATE and keyframe count are the drift's, not the method's);
+    a finite ATE; nn launched (the fitness passes), moments with VGICP."""
+    ref = REF_VOXEL[method]
+    if not np.isfinite(m["ate_m"]):
+        raise AssertionError(f"{method}: ATE not finite")
+    if ref["ate_m"] <= DIVERGED_ATE_M:
+        lim = max(ref["ate_m"] + 0.05, 1.2 * ref["ate_m"])
+        if not m["ate_m"] <= lim:
+            raise AssertionError(f"{method}: ATE {m['ate_m']:.4f} m > "
+                                 f"{lim:.4f}")
+        if abs(m["keyframes"] - ref["keyframes"]) > 2:
+            raise AssertionError(f"{method}: {m['keyframes']} keyframes, "
+                                 f"JAX CPU {ref['keyframes']}")
+    elif not m["ate_m"] > DIVERGED_ATE_M:
+        raise AssertionError(f"{method}: ATE {m['ate_m']:.4f} m where the "
+                             f"JAX package loses the track "
+                             f"({ref['ate_m']:.2f} m): the reference is no "
+                             "longer what this row reproduces")
+    if abs(m["loops"] - ref["loops"]) > max(2, 0.2 * ref["loops"]) or (
+            ref["loops"] and not m["loops"]):
+        raise AssertionError(f"{method}: {m['loops']} loops, JAX CPU "
+                             f"{ref['loops']}")
+    if m["launches"]["nn"] <= 0:
+        raise AssertionError(f"{method}: nn never launched")
+    if method == "FAST_VGICP" and m["launches"]["moments"] <= 0:
+        raise AssertionError(f"{method}: moments never launched")
+
+
+def ndt_scene_check(torch):
+    """NDT and FAST_VGICP on tests/test_registration.py's structured scene
+    (two walls and a floor, 1500 points, resolution 2.0) on the card:
+    each recovers the known pose within the JAX package's own bounds."""
+    from mrg_slam_tpu_torch.config import RegistrationConfig
+    from mrg_slam_tpu_torch.ops import registration as reg
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud
+    from mrg_slam_tpu_torch.utils import se3
+
+    rng = np.random.default_rng(0)
+    n = 500
+    pts = np.concatenate([
+        np.stack([rng.uniform(-10, 10, n), rng.uniform(-10, 10, n),
+                  rng.normal(scale=0.02, size=n)], 1),
+        np.stack([rng.uniform(-10, 10, n),
+                  10 + rng.normal(scale=0.02, size=n),
+                  rng.uniform(0, 4, n)], 1),
+        np.stack([-10 + rng.normal(scale=0.02, size=n),
+                  rng.uniform(-10, 10, n), rng.uniform(0, 4, n)], 1)]
+    ).astype(np.float32)
+    gt = se3.pose_exp(torch.tensor([0.3, -0.2, 0.1, 0.02, 0.03, -0.05]))
+    src = se3.pose_apply(se3.pose_inverse(gt), torch.from_numpy(pts))
+    out = {}
+    for method, tol_t, tol_r in (("NDT", 0.05, 0.01),
+                                 ("FAST_VGICP", 0.10, 0.02)):
+        p = RegistrationConfig(registration_method=method,
+                               reg_transformation_epsilon=1e-4,
+                               reg_maximum_iterations=64,
+                               reg_resolution=2.0)
+        res = reg.align(p, reg.make_source(PointCloud.from_array(
+            src.numpy(), 2048), p), reg.make_target(
+            PointCloud.from_array(pts, 2048), p), se3.pose_identity("cuda"))
+        est = res.pose.cpu()
+        t_err = float(torch.linalg.vector_norm(est[:3] - gt[:3]))
+        r_err = float(se3.rotation_angle(se3.pose_between(est, gt)[3:]))
+        out[method] = dict(t_err_m=t_err, r_err=r_err,
+                           iterations=int(res.iterations))
+        if not (t_err < tol_t and r_err < tol_r):
+            raise AssertionError(f"{method} on the structured scene: "
+                                 f"{t_err:.4f} m / {r_err:.4f} rad")
+    log(f"# voxel family on the structured scene (card): {out}")
+    return out
+
+
+def voxel_kernel_rows(torch, bucket, launches):
+    """nn at the largest voxel pair bucket (the fitness pass: sources at
+    the rows' initial poses against the raw target clouds, also with
+    every 4th row frozen), bitwise to nn_plain; timed as the other rows,
+    with its launches over both voxel runs."""
+    from mrg_slam_tpu_torch.ops import nn_kernel as nk
+    from mrg_slam_tpu_torch.ops.cloud import pad_invalid
+    from mrg_slam_tpu_torch.utils import se3
+
+    where = "row 2's FAST_VGICP and NDT runs"
+    clouds, srcs, inits = bucket
+    dev = clouds[0].points.device
+    init = torch.from_numpy(inits).to(dev)
+    p_src = se3.pose_apply(init[:, None, :], torch.stack(
+        [c.points for c in srcs])).contiguous()
+    p_sm = torch.stack([c.mask for c in srcs]).contiguous()
+    t_m = torch.stack([c.mask for c in clouds]).contiguous()
+    p_tgt = pad_invalid(torch.stack([c.points for c in clouds]),
+                        t_m).contiguous()
+    frozen = p_sm.clone()
+    frozen[::4] = False
+    check_nn(torch, nk, p_src, p_tgt, "voxel pair bucket, frozen", frozen,
+             t_m)
+    err = check_nn(torch, nk, p_src, p_tgt, "voxel pair bucket", p_sm, t_m)
+    log(f"# nn at the largest voxel pair bucket: {p_src.shape[0]} rows x "
+        f"{p_src.shape[1]} lanes: bitwise == plain on every lane, also "
+        "with every 4th row frozen")
+    real = [(a[ma], b[mb]) for a, b, ma, mb in zip(p_src, p_tgt, p_sm, t_m)]
+
+    def lib_nn():
+        return [torch.cdist(a[None], b[None],
+                            compute_mode="donot_use_mm_for_euclid_dist"
+                            ).min(dim=-1) for a, b in real]
+
+    pairs = float((p_sm.sum(-1).double() * t_m.sum(-1).double()).sum())
+    return [timed_row(
+        torch, "nn_pairs_voxel", "mrg_slam_tpu_torch/csrc/nn.cu",
+        "mrg_slam_tpu/ops/pallas_nn.py:48",
+        lambda: nk.nn_cuda(p_src, p_tgt, p_sm, t_m),
+        lambda: nk.nn_plain(p_src, p_tgt, p_sm, t_m), lib_nn,
+        launches, err,
+        *bound(pairs, 9, 0, (p_src.numel() + p_tgt.numel()) * 4
+               + p_src.shape[0] * p_src.shape[1] * 12), where=where)]
+
+
+def voxel_phase(torch):
+    """Acceptance row 2 at its width through `baseline_runs.config2_full_
+    slam(registration_method=...)` (per frame `replay`) with FAST_VGICP
+    and with NDT, each held to REF_VOXEL; the voxel family on the
+    structured scene; then nn at the largest voxel pair bucket."""
+    from mrg_slam_tpu_torch.ops import registration as reg
+    from mrg_slam_tpu_torch.pipeline import baseline_runs as bl
+
+    t0 = time.perf_counter()
+    out, nn_launches = {}, 0
+    with VoxelBucketRecorder(reg) as rec:
+        for method in ("FAST_VGICP", "NDT"):
+            m, r = replay_row(torch, f"2_full_graph_slam_{method}",
+                              lambda: bl.config2_full_slam(
+                                  registration_method=method),
+                              ref=REF_VOXEL[method])
+            if not np.isfinite(r["keyframe_trajectory"]).all():
+                raise AssertionError(f"{method}: keyframe poses not finite")
+            check_voxel(method, m)
+            out[method] = m
+            nn_launches += m["launches"]["nn"]
+    out["structured_scene"] = ndt_scene_check(torch)
+    rows = voxel_kernel_rows(torch, rec.largest, nn_launches)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"# voxel phase: {out['phase_s']:.1f} s")
+    return out, rows
+
+
 def main():
     import torch
 
@@ -4177,6 +4441,9 @@ def main():
     rows.extend(launch_rows)
     proc_m, proc_rows = processes_phase(torch)
     rows.extend(proc_rows)
+    dist_m = dist_phase(torch)
+    voxel_m, voxel_rows = voxel_phase(torch)
+    rows.extend(voxel_rows)
     log(json.dumps({"frames_per_s": fps,
                     "pass1_frames_per_s": FRAMES / sum(run1.block_walls),
                     "ate_m": ate, "ref_ate_m": REF_ATE_M,
@@ -4191,6 +4458,8 @@ def main():
                     "exchange": exchange_m,
                     "launch": launch_m,
                     "processes": proc_m,
+                    "distributed": dist_m,
+                    "voxel": voxel_m,
                     "build_s": native.build_seconds}))
     log(f"# smoke run: {time.perf_counter() - t_start:.1f} s, kernel builds "
         "included")

@@ -125,8 +125,8 @@ class ScanMatchingOdometryConfig:
 class FloorDetectionConfig:
     """Mirrors floor_detection_component params (mrg_slam.yaml:113-123).
 
-    Declared so that `EngineConfig` carries the section; floor detection
-    is not ported yet and `pipeline.replay.Robot` refuses it when enabled.
+    `pipeline.replay.Robot` runs floor detection
+    (models/floor_detection.py) when it is enabled.
     """
 
     enable_floor_detection: bool = False
@@ -217,7 +217,7 @@ class OptimizerConfig:
     chi2_rel_tol: float = 1e-6
     lm_initial_lambda: float = 1e-6
     # dense | cg | chain | auto (dense while 6N+3P <= auto_dense_max_dofs);
-    # only dense is ported (graph/solve.py)
+    # (graph/solve.py)
     solver_backend: str = "auto"
     auto_dense_max_dofs: int = 12288
     cg_max_iterations: int = 256

@@ -11,7 +11,8 @@ this module needs nothing of the JAX package:
     graph = graph_from_numpy(jax.tree.map(np.asarray, jax_graph))
 
 A delta graph of the exchange crosses the same way: `graph_msg_from_numpy`
-takes a GraphMsg of the JAX package whose clouds were fetched as numpy.
+takes a GraphMsg of the JAX package whose clouds were fetched as numpy,
+and `voxel_map_from_numpy` a GaussianVoxelMap (a VGICP/NDT target).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from . import config
 from .graph.types import EDGE_TABLES, PoseGraphData
 from .models.odometry_fused import OdomCarry
 from .ops.cloud import PointCloud
+from .ops.gaussian_voxel import GaussianVoxelMap
 from .parallel import messages
 from .runtime import DeviceLike, resolve_device
 
@@ -63,6 +65,21 @@ def graph_from_numpy(g, device: DeviceLike = None) -> PoseGraphData:
     return PoseGraphData(**tables, **{
         f: _tensor(getattr(g, f), dev) for f in PoseGraphData._fields
         if f not in tables})
+
+
+_VOXEL_DTYPES = dict(keys=torch.int32, valid=torch.bool)
+
+
+def voxel_map_from_numpy(m, device: DeviceLike = None) -> GaussianVoxelMap:
+    """A `GaussianVoxelMap` from the JAX package's fetched as numpy arrays
+    (a NamedTuple or mapping of the same field names, leading batch axes
+    allowed): int32 keys, bool valid, float32 the rest."""
+    d = m._asdict() if hasattr(m, "_asdict") else dict(m)
+    dev = resolve_device(device)
+    return GaussianVoxelMap(**{
+        f: torch.from_numpy(np.array(d[f])).to(
+            dev, _VOXEL_DTYPES.get(f, torch.float32))
+        for f in GaussianVoxelMap._fields})
 
 
 _CARRY_DTYPES = dict(target_mask=torch.bool, initialized=torch.bool,

@@ -33,6 +33,14 @@ JAX package solves T for [b, U] twice; the columns are the same).
 Vectors come in pairs (node stack (N, 6, k), plane stack (P, 3, k)). A
 factorization that fails is reported through the `ok` flags, and the
 callers raise: no solve quietly becomes another.
+
+Distributed (a torch.distributed `group` of n_shards ranks, the graph
+whole on every rank; parallel/dist_solver.py): each rank factors its
+S / n_shards segments' interior panels, and the per-segment Schur
+contributions and back-substituted interiors, zero outside a rank's
+segments, are summed over the ranks (each rank owns a disjoint slice,
+so the sum is the concatenation: the JAX package's `_scatter_psum`);
+the reduced separator system is solved on every rank.
 """
 
 from __future__ import annotations
@@ -113,6 +121,9 @@ def _sym_sqrt(W: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 class ChainFactors(NamedTuple):
+    """With a group, the other ranks' segments hold an identity cholA and
+    zero E and F."""
+
     cholA: torch.Tensor  # (S, mi, mi) per-segment interior Cholesky
     E: torch.Tensor      # (S, mi, 12) interior -> [left, right] separators
     F: torch.Tensor      # (S, mi, 12) A^-1 E
@@ -164,27 +175,61 @@ def _chain_T(g, lin, lam, d, free):
     return Td, Toff, Tp
 
 
+def _my_segments(Sg: int, group, n_shards: int) -> Tuple[int, int]:
+    """(first segment, segment count) of this rank's panels."""
+    if Sg % n_shards:
+        raise ValueError(f"{Sg} segments do not split over {n_shards} "
+                         "ranks")
+    loc = Sg // n_shards
+    return (0 if group is None else group.rank() * loc), loc
+
+
+def _own(Sg: int, group, n_shards: int, like: torch.Tensor) -> torch.Tensor:
+    """(Sg, 1, 1): 1 on this rank's segments, 0 on the others'."""
+    seg0, Sl = _my_segments(Sg, group, n_shards)
+    own = like.new_zeros((Sg, 1, 1))
+    own[seg0: seg0 + Sl] = 1.0
+    return own
+
+
 def _factor_T(Td: torch.Tensor, Toff: torch.Tensor, Tp: torch.Tensor,
-              K: int) -> ChainFactors:
+              K: int, group=None, n_shards: int = 1) -> ChainFactors:
     """Two-level factorization of block-tridiagonal T: segments of K
     nodes, interiors their first K-1 nodes, separators their last;
     batched interior Cholesky, Schur complement onto the separators,
-    dense reduced Cholesky. The plane blocks are inverted."""
+    dense reduced Cholesky. The plane blocks are inverted.
+
+    With a group each rank Cholesky-factors its own segments' panels;
+    the batched solves and products then run over all segments, the
+    others' an identity factor and zero couplings, and the Schur
+    contributions (with the count of failed panels) are summed over the
+    ranks in one reduction. A segment's arithmetic is so the one
+    device's: the card's batched solves round a panel by the batch's
+    size, and 4 panels a rank of 32 solved otherwise than one device (the
+    dry run's 2048-node chain then ended 1.44 m from one device over 8
+    ranks on an H100, past its 1.0 m bound)."""
     n = Td.shape[0]
     if n % K:
         raise ValueError(f"node capacity {n} is not a multiple of K={K}")
     Sg, mi = n // K, 6 * (K - 1)
+    seg0, Sl = _my_segments(Sg, group, n_shards)
     dev = Td.device
-    A = Td.new_zeros((Sg, K - 1, K - 1, 6, 6))
+    Td_loc = Td[seg0 * K: (seg0 + Sl) * K]
+    Toff_loc = Toff[seg0 * K: (seg0 + Sl) * K]
+    A = Td.new_zeros((Sl, K - 1, K - 1, 6, 6))
     ii = torch.arange(K - 1, device=dev)
-    A[:, ii, ii] = Td.view(Sg, K, 6, 6)[:, : K - 1]
+    A[:, ii, ii] = Td_loc.view(Sl, K, 6, 6)[:, : K - 1]
     if K > 2:
         jj = torch.arange(K - 2, device=dev)
-        Oseg = Toff.view(Sg, K, 6, 6)[:, : K - 2]
+        Oseg = Toff_loc.view(Sl, K, 6, 6)[:, : K - 2]
         A[:, jj, jj + 1] = Oseg
         A[:, jj + 1, jj] = Oseg.transpose(-1, -2)
-    A = A.permute(0, 1, 3, 2, 4).reshape(Sg, mi, mi)
+    A = A.permute(0, 1, 3, 2, 4).reshape(Sl, mi, mi)
     cholA, info_a = torch.linalg.cholesky_ex(A)
+    if group is not None:  # the other ranks' panels: identity factors
+        eye = torch.eye(mi, dtype=A.dtype, device=dev)
+        cholA = torch.cat([eye.expand(seg0, mi, mi), cholA,
+                           eye.expand(Sg - seg0 - Sl, mi, mi)])
 
     # interior -> separator couplings E (S, mi, 12): columns 0:6 the left
     # separator (segment s-1's last node, by Toff[sK-1]^T at interior row
@@ -197,10 +242,15 @@ def _factor_T(Td: torch.Tensor, Toff: torch.Tensor, Tp: torch.Tensor,
     E[:, 0, :, 0:6] = left.transpose(-1, -2)
     E[:, K - 2, :, 6:12] = right
     E = E.view(Sg, mi, 12)
+    if group is not None:
+        E = E * _own(Sg, group, n_shards, E)
     F = torch.cholesky_solve(E, cholA)
 
     # the reduced separator system, block-tridiagonal, assembled dense
     G = E.transpose(1, 2) @ F                        # (S, 12, 12)
+    bad_a = (info_a != 0).sum().to(G.dtype)
+    if group is not None:
+        G, bad_a = S._sum_over(group, G, bad_a)
     Rd = Td.view(Sg, K, 6, 6)[:, K - 1] - G[:, 6:12, 6:12]
     Rd = Rd - torch.cat([G[1:, 0:6, 0:6], torch.zeros_like(G[:1, :6, :6])])
     Ro = -G[1:, 0:6, 6:12]                           # R[s-1, s], s >= 1
@@ -210,21 +260,27 @@ def _factor_T(Td: torch.Tensor, Toff: torch.Tensor, Tp: torch.Tensor,
     R[segs[:-1] + 1, segs[:-1]] = Ro.transpose(-1, -2)
     cholR, info_r = torch.linalg.cholesky_ex(
         R.permute(0, 2, 1, 3).reshape(6 * Sg, 6 * Sg))
-    ok = (info_a == 0).all() & (info_r == 0)
+    ok = (bad_a == 0) & (info_r == 0)
     Tp_inv = S._inv_sym(Tp, 0.0) if Tp.shape[0] else Tp
     return ChainFactors(cholA=cholA, E=E, F=F, cholR=cholR, Tp_inv=Tp_inv,
                         ok=ok)
 
 
 def _solve_T(fac: ChainFactors, b: torch.Tensor, K: int,
-             b_p: torch.Tensor):
+             b_p: torch.Tensor, group=None, n_shards: int = 1):
     """T^-1 applied to stacked right-hand sides b (N, 6, k) and b_p
-    (P, 3, k) -> (x (N, 6, k), x_p (P, 3, k))."""
+    (P, 3, k) -> (x (N, 6, k), x_p (P, 3, k)). With a group the interior
+    substitutions are this rank's segments' (zero on the others'), and
+    the separators' right-hand side and the interiors are summed over
+    the ranks (two reductions an application)."""
     n, _, k = b.shape
     Sg, mi = n // K, 6 * (K - 1)
     bv = b.reshape(Sg, K, 6, k)
-    y = torch.cholesky_solve(bv[:, : K - 1].reshape(Sg, mi, k), fac.cholA)
-    r_red = fac.E.transpose(1, 2) @ y                # (S, 12, k)
+    b_int = bv[:, : K - 1].reshape(Sg, mi, k)
+    if group is not None:
+        b_int = b_int * _own(Sg, group, n_shards, b_int)
+    y = torch.cholesky_solve(b_int, fac.cholA)
+    r_red = S._sum_over(group, fac.E.transpose(1, 2) @ y)  # (S, 12, k)
     r_sep = bv[:, K - 1] - r_red[:, 6:12]
     r_sep = r_sep - torch.cat([r_red[1:, 0:6],
                                torch.zeros_like(r_red[:1, 0:6])])
@@ -233,7 +289,7 @@ def _solve_T(fac: ChainFactors, b: torch.Tensor, K: int,
     # each segment's [left, right] separator values
     x_lr = torch.cat([torch.cat([torch.zeros_like(x_sep[:1]), x_sep[:-1]]),
                       x_sep], dim=1)                 # (S, 12, k)
-    x_int = (y - fac.F @ x_lr).view(Sg, K - 1, 6, k)
+    x_int = S._sum_over(group, y - fac.F @ x_lr).view(Sg, K - 1, 6, k)
     x = torch.cat([x_int, x_sep[:, None]], dim=1).reshape(n, 6, k)
     return x, (fac.Tp_inv @ b_p if b_p.shape[0] else b_p)
 
@@ -319,12 +375,13 @@ def _scales(d, free, lam):
     return torch.where(free > 0, sc, torch.ones_like(sc))
 
 
-def _scaled_T(g, lin, lam, d, free, sc, K) -> ChainFactors:
+def _scaled_T(g, lin, lam, d, free, sc, K, group=None,
+              n_shards: int = 1) -> ChainFactors:
     Td, Toff, Tp = _chain_T(g, lin, lam, d, free)
     Td = Td * sc[0][:, :, None] * sc[0][:, None, :]
     Toff = Toff * sc[0][:, :, None] * torch.roll(sc[0], -1, 0)[:, None, :]
     Tp = Tp * sc[1][:, :, None] * sc[1][:, None, :]
-    return _factor_T(Td, Toff, Tp, K)
+    return _factor_T(Td, Toff, Tp, K, group, n_shards)
 
 
 def _pool_terms(g, lin, lam):
@@ -335,14 +392,17 @@ def _pool_terms(g, lin, lam):
     return free, d, [_scales(di, fi, lam) for di, fi in zip(d, free)]
 
 
-def chain_delta(g, lin, lam, aux: ChainAux, K: int):
+def chain_delta(g, lin, lam, aux: ChainAux, K: int, group=None,
+                n_shards: int = 1):
     """Exact damped Newton step by T + U U^T Woodbury: dense_delta's
     counterpart in the LM -> (dx_n (N, 6), dx_p (P, 3), predicted chi2
-    reduction, ok)."""
+    reduction, ok). With a group of n_shards ranks (the graph whole on
+    each) the segment panels of the factorization and of every T-solve
+    are split over the ranks; the O(E) terms are computed on every rank."""
     sizes = (g.n_nodes, g.n_planes)
     free, d, sc = _pool_terms(g, lin, lam)
     g_n, g_p = S.gradient(g, lin)
-    fac = _scaled_T(g, lin, lam, d, free, sc, K)
+    fac = _scaled_T(g, lin, lam, d, free, sc, K, group, n_shards)
     parts, ok = _coupling_U(g, lin, aux, free, sc)
     ok = ok & fac.ok
     mtot = sum(p[2].shape[0] for p in parts)
@@ -354,7 +414,7 @@ def chain_delta(g, lin, lam, aux: ChainAux, K: int):
     s_dtype = torch.float64 if g.n_planes else sc[0].dtype
     if mtot:
         U_n, U_p = _U_dense(parts, sizes, mtot, sc[0])
-        Y_U = _solve_T(fac, U_n, K, U_p)
+        Y_U = _solve_T(fac, U_n, K, U_p, group, n_shards)
         LU, piv, info = torch.linalg.lu_factor_ex(
             torch.eye(6 * mtot, dtype=s_dtype, device=sc[0].device)
             + _Ut_dot(parts, Y_U).to(s_dtype))
@@ -363,7 +423,7 @@ def chain_delta(g, lin, lam, aux: ChainAux, K: int):
     def wsolve(r):
         """(T + U U^T)^-1 r in the scaled space, r = (r_n (N, 6, 1),
         r_p (P, 3, 1))."""
-        y = _solve_T(fac, r[0], K, r[1])
+        y = _solve_T(fac, r[0], K, r[1], group, n_shards)
         if not mtot:
             return y
         z = torch.linalg.lu_solve(LU, piv, _Ut_dot(parts, y).to(s_dtype))

@@ -36,10 +36,19 @@ capacity is skipped at every stage, as the JAX package's `_has` skips it,
 so a pose-only graph pays for its SE3 sweep alone. Vectors of a CG solve
 are tuples (node stack (N, 6, B), plane stack (P, 3, B)), the plane stack
 left out when the graph has no plane pool.
+
+The functions whose JAX twins take an `axis_name` take a `group`, a
+torch.distributed process group (parallel/dist_solver.py): their graph's
+edge tables are then one rank's shard, and each reduction over edges
+(chi2, the gradient, the diagonal blocks, the dense Hessian, H v) is one
+all-reduce over the group, packed where several fall together, so every
+rank holds the same sums and takes the same LM decisions. With
+`group=None` nothing is reduced and the ops are those of one device.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -89,6 +98,62 @@ class OptimizeResult(NamedTuple):
     cg_iterations: torch.Tensor  # () CG iterations over the LM (cg only)
 
 
+def _sum_over(group, *xs):
+    """The tensors summed over the ranks of `group`, packed into one
+    reduction (the twin of the JAX package's `_psum_if`); with no group,
+    the tensors themselves. Every rank gets the same bits.
+
+    A gloo group of a power-of-two size sums by recursive doubling on the
+    host (`_doubling_sum`); any other group by one `dist.all_reduce`. A
+    ring all_reduce, gloo's, takes 2 (n - 1) message latencies where
+    doubling takes log2 n: on one host whose loopback costs ~1 ms a
+    message that is the solve's wall (PERF.md §6, PR 12)."""
+    if group is None:
+        return xs if len(xs) > 1 else xs[0]
+    import torch.distributed as dist
+
+    flat = torch.cat([x.reshape(-1) for x in xs])
+    n = group.size()
+    t0 = time.perf_counter()
+    if dist.get_backend(group) == "gloo" and n & (n - 1) == 0:
+        flat = _doubling_sum(flat, group)
+    else:
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    _sum_over.calls += 1
+    _sum_over.seconds += time.perf_counter() - t0
+    out = [v.view(x.shape) for v, x in
+           zip(torch.split(flat, [x.numel() for x in xs]), xs)]
+    return tuple(out) if len(out) > 1 else out[0]
+
+
+def _doubling_sum(flat: torch.Tensor, group) -> torch.Tensor:
+    """Recursive doubling over a gloo group of 2^m ranks: the tensor is
+    read to the host once (gloo reduces a CUDA tensor in host memory
+    too), then in round k each rank swaps its partial sum with rank
+    (rank XOR 2^k) and adds; a + b and b + a are the same bits, so the
+    partners, and after m rounds every rank, hold the same sum. It goes
+    back to the tensor's device."""
+    import torch.distributed as dist
+
+    host = flat.cpu()
+    buf = torch.empty_like(host)
+    rank, k = group.rank(), 1
+    while k < group.size():
+        peer = dist.get_global_rank(group, rank ^ k)
+        req = dist.isend(host, peer, group=group)
+        dist.recv(buf, peer, group=group)
+        req.wait()
+        host = host + buf
+        k <<= 1
+    return host.to(flat.device)
+
+
+# reductions over a group made in this process, and their host wall (a
+# CUDA tensor's read to the host waits for the work queued before it)
+_sum_over.calls = 0
+_sum_over.seconds = 0.0
+
+
 def _has(table) -> bool:
     """Whether a family's table has capacity: one of zero capacity adds
     no op to any stage of a solve (the JAX package's `_has`)."""
@@ -128,8 +193,9 @@ def _aux_terms(g: PoseGraphData):
     return out, chi2
 
 
-def linearize(g: PoseGraphData) -> LinearizedGraph:
-    """Residuals, Jacobians and weights of every edge, and chi2."""
+def linearize(g: PoseGraphData, group=None) -> LinearizedGraph:
+    """Residuals, Jacobians and weights of every edge, and chi2 (summed
+    over `group`'s edge shards)."""
     t = g.se3
     if t.mask.shape[0] == 0:
         z = g.poses.new_zeros
@@ -140,10 +206,12 @@ def linearize(g: PoseGraphData) -> LinearizedGraph:
         W, chi2 = _weighted(t.info, r, t.kernel, t.delta, t.mask)
         lin = LinearizedGraph(chi2, r, Ji, Jj, W)
     aux, c = _aux_terms(g)
-    return lin._replace(chi2=lin.chi2 + c, **aux) if aux else lin
+    lin = lin._replace(chi2=lin.chi2 + c, **aux) if aux else lin
+    return lin if group is None else lin._replace(
+        chi2=_sum_over(group, lin.chi2))
 
 
-def chi2_only(g: PoseGraphData) -> torch.Tensor:
+def chi2_only(g: PoseGraphData, group=None) -> torch.Tensor:
     """The robust chi2, without the SE3 family's Jacobians."""
     t = g.se3
     chi2 = g.poses.new_zeros(())
@@ -151,7 +219,7 @@ def chi2_only(g: PoseGraphData) -> torch.Tensor:
         r = se3.pose_error(t.meas, g.poses[t.from_idx], g.poses[t.to_idx])
         chi2 = _weighted(t.info, r, t.kernel, t.delta, t.mask)[1]
     c = _aux_terms(g)[1]
-    return chi2 if c is None else chi2 + c
+    return _sum_over(group, chi2 if c is None else chi2 + c)
 
 
 def _free_masks(g: PoseGraphData):
@@ -199,7 +267,7 @@ def _accumulate(out: list, pool: int, value: torch.Tensor) -> None:
     out[pool] = value if out[pool] is None else out[pool] + value
 
 
-def gradient(g: PoseGraphData, lin: LinearizedGraph):
+def gradient(g: PoseGraphData, lin: LinearizedGraph, group=None):
     """J^T W r per node pool, free dofs only: (N, 6), (P, 3)."""
     sizes = (g.n_nodes, g.n_planes)
     acc = [None, None]
@@ -211,10 +279,11 @@ def gradient(g: PoseGraphData, lin: LinearizedGraph):
     fn, fp = _free_masks(g)
     g_n = g.poses.new_zeros((sizes[0], 6)) if acc[0] is None else acc[0]
     g_p = g.poses.new_zeros((sizes[1], 3)) if acc[1] is None else acc[1]
+    g_n, g_p = _sum_over(group, g_n, g_p)
     return g_n * fn, g_p * fp
 
 
-def block_diagonal(g: PoseGraphData, lin: LinearizedGraph):
+def block_diagonal(g: PoseGraphData, lin: LinearizedGraph, group=None):
     """Per-node 6x6 and per-plane 3x3 diagonal blocks of H: (N, 6, 6),
     (P, 3, 3)."""
     sizes = (g.n_nodes, g.n_planes)
@@ -224,15 +293,16 @@ def block_diagonal(g: PoseGraphData, lin: LinearizedGraph):
         for pool, idx, J in ends:
             D[pool] = D[pool] + _segment_sum(
                 torch.einsum("eai,eab,ebj->eij", J, W, J), idx, sizes[pool])
-    return D[0], D[1]
+    return _sum_over(group, D[0], D[1])
 
 
-def make_hvp(g: PoseGraphData, lin: LinearizedGraph):
+def make_hvp(g: PoseGraphData, lin: LinearizedGraph, group=None):
     """Matrix-free H @ v over the node pools: per edge u = sum of J v at
     its ends, then J^T W u scattered back to each end; fixed and invalid
     nodes and planes are projected out. v is a tuple (v_n (N, 6, B),
     v_p (P, 3, B)), without v_p when the graph has no plane pool; the
-    result is a tuple of the same form."""
+    result is a tuple of the same form, summed over `group` in one
+    all-reduce a product."""
     sizes = (g.n_nodes, g.n_planes)
     free = [f[:, :, None] for f in _free_masks(g)]
     fams = [(W, [(pool, idx, J, J.transpose(1, 2)) for pool, idx, J in e])
@@ -250,6 +320,11 @@ def make_hvp(g: PoseGraphData, lin: LinearizedGraph):
             for pool, idx, _, JT in ends:
                 _accumulate(out, pool, _segment_sum(JT @ Wu, idx,
                                                     sizes[pool]))
+        if group is not None:
+            live = [k for k, o in enumerate(out) if o is not None]
+            summed = _sum_over(group, *(out[k] for k in live))
+            for k, o in zip(live, summed if len(live) > 1 else (summed,)):
+                out[k] = o
         return tuple(torch.zeros_like(x) if o is None else o * f
                      for x, o, f in zip(v, out, free))
 
@@ -324,13 +399,15 @@ def _pools(g: PoseGraphData, v: tuple) -> tuple:
     return tuple(v[:2 if g.n_planes else 1])
 
 
-def _damped_system(g: PoseGraphData, lin: LinearizedGraph, lam):
+def _damped_system(g: PoseGraphData, lin: LinearizedGraph, lam, D=None,
+                   group=None):
     """(H + lam diag(H) + 1e-6) v and its block-Jacobi preconditioner
-    over the graph's pools -> (A, Minv, diagonals (d_n, d_p))."""
-    D = block_diagonal(g, lin)
+    over the graph's pools -> (A, Minv, diagonals (d_n, d_p)). `D` are
+    the diagonal blocks when the caller has them."""
+    D = block_diagonal(g, lin) if D is None else D
     d = [torch.diagonal(x, dim1=-2, dim2=-1) for x in D]
     free = _free_masks(g)
-    hvp = make_hvp(g, lin)
+    hvp = make_hvp(g, lin, group)
     ridge = [(lam * di + 1e-6)[..., None] for di in d]
     Ms = [_block_jacobi(Di, lam, di, fi) for Di, di, fi in zip(D, d, free)]
 
@@ -344,19 +421,23 @@ def _damped_system(g: PoseGraphData, lin: LinearizedGraph, lam):
 
 
 def cg_delta(g: PoseGraphData, lin: LinearizedGraph, lam, g0norm,
-             cg_max: int, cg_tol: float):
+             cg_max: int, cg_tol: float, group=None):
     """Damped Newton step by block-Jacobi PCG -> (dx_n (N, 6), dx_p (P,
     3), predicted chi2 reduction, gradient inf-norm, CG iterations).
 
     Eisenstat-Walker forcing: the step is solved only to a tolerance
     proportional to the gradient's progress since the first LM iteration
     (`g0norm`, negative before it), since the next retraction invalidates
-    the linearization anyway."""
+    the linearization anyway. With `group`, the gradient and the
+    diagonal blocks are summed in one all-reduce, and each H v in one."""
     g_n, g_p = gradient(g, lin)
+    D = block_diagonal(g, lin)
+    if group is not None:
+        g_n, g_p, *D = _sum_over(group, g_n, g_p, *D)
     gnorm = torch.max(torch.abs(g_n))
     if g.n_planes:
         gnorm = torch.maximum(gnorm, torch.max(torch.abs(g_p)))
-    A, Minv, (d_n, d_p) = _damped_system(g, lin, lam)
+    A, Minv, (d_n, d_p) = _damped_system(g, lin, lam, D, group)
     eta = torch.clamp(gnorm / torch.clamp(g0norm, min=1e-30), 0.0, 0.1)
     tol = torch.clamp(eta, min=cg_tol)
     x, iters = pcg_solve(A, Minv, _pools(g, (-g_n[..., None],
@@ -371,11 +452,12 @@ def cg_delta(g: PoseGraphData, lin: LinearizedGraph, lam, g0norm,
     return dx_n, dx_p, pred, gnorm, iters[0]
 
 
-def assemble_dense(g: PoseGraphData, lin: LinearizedGraph):
+def assemble_dense(g: PoseGraphData, lin: LinearizedGraph, group=None):
     """Full (D, D) Hessian, (D,) right-hand side -J^T W r and the (D,)
     free-dof mask; D = 6 N + 3 P, the planes' dofs after the nodes'.
     Fixed and invalid dofs get zero rows and columns and a unit
-    diagonal."""
+    diagonal. With `group` the shards' Hessians and gradients are summed
+    in one all-reduce."""
     n, p = g.n_nodes, g.n_planes
     D = 6 * n + 3 * p
     H = g.poses.new_zeros(D * D)
@@ -397,6 +479,8 @@ def assemble_dense(g: PoseGraphData, lin: LinearizedGraph):
         H.index_put_((torch.cat(idx),), torch.cat(val), accumulate=True)
     H = H.view(D, D)
     g_n, g_p = gradient(g, lin)
+    if group is not None:
+        H, g_n, g_p = _sum_over(group, H, g_n, g_p)
     b = -torch.cat([g_n.reshape(-1), g_p.reshape(-1)])
     fn, fp = _free_masks(g)
     free = torch.cat([fn[:, 0].repeat_interleave(6),
@@ -477,12 +561,18 @@ def chain_aux_for(g: PoseGraphData):
                     qq_mask=g.plane_plane.mask.cpu().numpy())
 
 
-def _chain_K(n: int) -> int:
+def _chain_K(n: int, n_shards: int = 1) -> int:
     """Segment length of the chain backend: the largest power of two up
-    to 64 that divides the node capacity (capacities are powers of two)."""
+    to 64 that divides the node capacity (capacities are powers of two)
+    into a segment count that `n_shards` ranks split evenly (the JAX
+    package's `_chain_K` and, for n_shards > 1, `_chain_K_dist`)."""
     k = 64
-    while k > 2 and n % k:
+    while k > 2 and (n % k or (n // k) % n_shards):
         k //= 2
+    if n_shards > 1 and (n // k) % n_shards:
+        raise ValueError(f"node capacity {n} cannot split {n // k} segments "
+                         f"over {n_shards} devices — use a power-of-two "
+                         "capacity")
     return k
 
 
@@ -528,27 +618,38 @@ def _take(accept, g_new: PoseGraphData, lin_new: LinearizedGraph,
 
 
 def optimize(g: PoseGraphData, cfg: OptimizerConfig,
-             aux=None) -> OptimizeResult:
+             aux=None, group=None) -> OptimizeResult:
     """Levenberg-Marquardt with chi2-based accept/reject and Nielsen's
     lambda schedule, at most `g2o_solver_num_iterations` iterations;
     `gn_*` solver types run with a fixed tiny damping.
 
     The chain backend needs the coupling classification `aux`
     (chain_solver.classify); without one it is read off the graph. A
-    chain step whose factorization fails raises RuntimeError."""
+    chain step whose factorization fails raises RuntimeError.
+
+    With a process `group` the loop runs SPMD on every rank of it (the
+    JAX package's `_optimize_body` under shard_map): for dense and cg, `g`
+    holds this rank's shard of each edge table and every reduction over
+    edges is an all-reduce; for chain, `g` is the whole graph on every
+    rank and the factorization's segment panels are split over the ranks
+    (chain_solver.chain_delta). Node state and every LM decision are
+    replicated, so each rank returns the same poses."""
     from . import chain_solver
     backend = resolve_backend(cfg.solver_backend, g.n_nodes, g.n_planes,
                               cfg.auto_dense_max_dofs)
     is_lm = cfg.g2o_solver_type.startswith("lm")
     n, p = g.n_nodes, g.n_planes
     dev = g.poses.device
+    n_shards = 1 if group is None else group.size()
+    edge_group = group
     if backend == "chain":
-        K = _chain_K(n)
+        K = _chain_K(n, n_shards)
         aux = chain_solver.aux_to(aux if aux is not None
                                   else chain_aux_for(g), dev)
+        edge_group = None  # the graph is whole on every rank
     # one linearization per iteration: an accepted step hands its trial
     # linearization on, a rejected one keeps the current
-    lin = linearize(g)
+    lin = linearize(g, edge_group)
     chi2_0 = chi2 = lin.chi2
     lam = torch.full((), cfg.lm_initial_lambda if is_lm else 1e-9,
                      device=dev)
@@ -559,20 +660,21 @@ def optimize(g: PoseGraphData, cfg: OptimizerConfig,
     it = 0
     while it < cfg.g2o_solver_num_iterations:
         if backend == "dense":
-            H, b, free = assemble_dense(g, lin)
+            H, b, free = assemble_dense(g, lin, group)
             x, pred = dense_delta(H, b, free, lam)
             dx_n, dx_p = x[:6 * n].view(n, 6), x[6 * n:].view(p, 3)
         elif backend == "chain":
-            dx_n, dx_p, pred, ok = chain_solver.chain_delta(g, lin, lam, aux,
-                                                            K)
+            dx_n, dx_p, pred, ok = chain_solver.chain_delta(
+                g, lin, lam, aux, K, group, n_shards)
             failed = ~ok
         else:
             dx_n, dx_p, pred, gnorm, k = cg_delta(
-                g, lin, lam, g0norm, cfg.cg_max_iterations, cfg.cg_tol)
+                g, lin, lam, g0norm, cfg.cg_max_iterations, cfg.cg_tol,
+                group)
             g0norm = torch.where(g0norm < 0, gnorm, g0norm)
             cg_iters = cg_iters + k
         g_new = _retract_all(g, dx_n, dx_p)
-        lin_new = linearize(g_new)
+        lin_new = linearize(g_new, edge_group)
         chi2_new = lin_new.chi2
         accept, lam, nu, done = _lm_schedule(chi2, chi2_new, pred, lam, nu,
                                              is_lm, cfg.chi2_rel_tol)

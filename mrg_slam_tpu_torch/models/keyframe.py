@@ -17,6 +17,7 @@ import numpy as np
 
 from ..ops.cloud import PointCloud
 from ..ops.covariance import GICPCloud
+from ..ops.gaussian_voxel import GaussianVoxelMap
 
 EDGE_ANCHOR = "anchor"
 EDGE_ODOM = "odom"
@@ -46,6 +47,9 @@ class KeyFrame:
     # the cloud with its GICP covariances, made once for the pair program
     # (models/pair_runner.py) or handed over by the front end
     gicp: Optional[GICPCloud] = None
+    # its Gaussian voxel map, made once for the pair program with a
+    # voxel-family method (models/pair_runner.py)
+    voxel_map: Optional[GaussianVoxelMap] = None
     # sensor attachments (keyframe.cpp:88-104): set by the processors'
     # flushes (models/processors.py)
     floor_coeffs: Optional[np.ndarray] = None

@@ -4,8 +4,9 @@ registration with keyframe switching and transform-jump rejection.
 Counterpart of the JAX package's models/odometry.py (apps/
 scan_matching_odometry_component.cpp without ROS): the cloud callback
 becomes `ScanMatchingOdometry.step`. The registration
-(`ops.registration.align`) and the keyframe target's covariances
-(`make_target`, on a keyframe switch) run on the cloud's device; the
+(`ops.registration.align`) and the keyframe target (`make_target`, on a
+keyframe switch: its covariances for the GICP family, its Gaussian voxel
+map for VGICP and NDT) run on the cloud's device; the
 state machine (keep-last, jump rejection, keyframe switch, the initial
 guesses) runs on the host in numpy (`utils.se3np`), on values the host
 reads back.

@@ -82,10 +82,16 @@ def _step(cfg: ScanMatchingOdometryConfig, carry: OdomCarry,
 
 
 def _refuse_voxel(params) -> None:
+    """The fused front end carries the keyframe target as a GICP cloud,
+    so it runs the GICP family only, as the JAX package's asserts
+    (models/odometry_fused.py:100-102); the per-frame
+    `ScanMatchingOdometry` runs the voxel family."""
     if not reg.is_gicp_like(params.registration_method):
         raise NotImplementedError(
-            "fused odometry supports the GICP family; voxel-target methods "
-            "are not ported yet (ROADMAP.md queue 1 item 11)")
+            "fused odometry runs the GICP family (SMALL_GICP, FAST_GICP, "
+            f"GICP, GICP_OMP, ICP), not {params.registration_method}: its "
+            "carry holds a GICP target, as in the JAX package; use the "
+            "per-frame ScanMatchingOdometry for VGICP and NDT")
 
 
 def _advance(cfg: ScanMatchingOdometryConfig, carry: OdomCarry,

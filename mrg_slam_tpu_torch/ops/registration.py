@@ -1,25 +1,38 @@
-"""GICP-family registration as Gauss-Newton over weighted correspondences.
+"""Point-cloud registration (ICP / GICP / VGICP / NDT) as Gauss-Newton
+over weighted correspondences.
 
-Counterpart of the GICP branch of the JAX package's ops/registration.py:
+Counterpart of the JAX package's ops/registration.py:
 
     minimize  sum_i  r_i^T W_i r_i,     r_i = q_i - T p_i
 
-with q the 1-NN target point (csrc/nn.cu on the card) and
-W = (C_q + R C_p R^T)^-1 (identity source covariances for ICP). Jacobian
-convention: right perturbation T <- T * exp(xi), J = [-R, R skew(p)].
+with method-specific correspondences and weights:
+
+- ICP:   q the 1-NN target point (csrc/nn.cu on the card), W = I;
+- GICP (SMALL_GICP, FAST_GICP, GICP, GICP_OMP): q the 1-NN point,
+  W = (C_q + R C_p R^T)^-1;
+- VGICP (FAST_VGICP, VGICP): q the mean of the source point's voxel in
+  the target's Gaussian voxel map (ops/gaussian_voxel.py),
+  W = (C_vox + R C_p R^T)^-1;
+- NDT (NDT, NDT_OMP): q the voxel mean, W = C_vox^-1 times Magnusson's
+  per-correspondence weight d2 exp(-d2/2 r^T W r) (pclomp's P2D score),
+  no source covariances.
+
+Jacobian convention: right perturbation T <- T * exp(xi),
+J = [-R, R skew(p)].
 
 The JAX package runs the iterations in one `lax.while_loop`; here they are
 a Python loop that stops once the solve has converged (or stalled, or lost
 every correspondence with the stall exit on). Reading that flag is one host
-sync per Gauss-Newton iteration. The voxel-target family (VGICP, NDT) is
-not ported yet (ROADMAP.md queue 1 item 11).
+sync per Gauss-Newton iteration.
 
 The back end's pair program (`align_pairs_packed`) runs B (target, source)
 pairs as rows of one batched Gauss-Newton, each row with its own budget
 and exits, where the JAX package maps `_align_impl` over the rows with
-`vmap`. `align_rows` runs the odometry solves of R co-hosted robots the
-same way, one row each. The single-row path above stays as the
-single-robot front end runs it.
+`vmap`. `align_pairs_voxel_packed` is the same program for voxel
+targets, whose fitness pass still searches the raw target clouds.
+`align_rows` runs the odometry solves of R co-hosted robots the same
+way, one row each. The single-row path above stays as the single-robot
+front end runs it.
 """
 
 from __future__ import annotations
@@ -35,9 +48,10 @@ from . import knn
 from .cloud import PointCloud
 from .covariance import (GICPCloud, estimate_covariances,
                          estimate_covariances_radius, inv3x3)
+from .gaussian_voxel import GaussianVoxelMap, build_gaussian_voxel_map, lookup
+from .stats_kernel import radius_sq
 
-_VOXEL_LATER = ("is not ported yet: the voxel-target family waits for "
-                "ROADMAP.md queue 1 item 11")
+VOXEL_METHODS = ("FAST_VGICP", "VGICP", "NDT", "NDT_OMP")
 
 
 class RegistrationResult(NamedTuple):
@@ -50,9 +64,10 @@ class RegistrationResult(NamedTuple):
 
 
 class RegistrationTarget(NamedTuple):
-    """Registration target; only the dense GICP cloud is ported."""
+    """Registration target: the dense GICP cloud or the voxel map."""
 
     gicp: Optional[GICPCloud] = None
+    voxels: Optional[GaussianVoxelMap] = None
 
 
 def is_gicp_like(method: str) -> bool:
@@ -95,14 +110,21 @@ def _identity_covs(cloud: PointCloud) -> GICPCloud:
                      eye.expand(cloud.points.shape[:-1] + (3, 3)))
 
 
-def make_target(cloud: PointCloud,
-                params: RegistrationConfig) -> RegistrationTarget:
-    """Preprocess a target cloud for the configured method."""
+def make_target(cloud: PointCloud, params: RegistrationConfig,
+                voxel_capacity: int = 16384) -> RegistrationTarget:
+    """Preprocess a target cloud for the configured method: covariances
+    for the GICP family, a Gaussian voxel map of at most `voxel_capacity`
+    voxels (cells of at least 4 points for NDT, 1 for VGICP) for the
+    voxel family."""
     m = params.registration_method
-    if not is_gicp_like(m):
-        raise NotImplementedError(f"registration method {m} {_VOXEL_LATER}")
-    return RegistrationTarget(gicp=_covariances(cloud, params)
-                              if m != "ICP" else _identity_covs(cloud))
+    if is_gicp_like(m):
+        return RegistrationTarget(gicp=_covariances(cloud, params)
+                                  if m != "ICP" else _identity_covs(cloud))
+    if m in VOXEL_METHODS:
+        return RegistrationTarget(voxels=build_gaussian_voxel_map(
+            cloud, params.reg_resolution, capacity=voxel_capacity,
+            min_points=4 if m in ("NDT", "NDT_OMP") else 1))
+    raise ValueError(f"unknown registration method {m}")
 
 
 def make_source(cloud: PointCloud, params: RegistrationConfig) -> GICPCloud:
@@ -119,10 +141,63 @@ def hessian_ridge(device: torch.device) -> torch.Tensor:
     return 1e-6 * torch.eye(6, device=device)
 
 
+def _use_source_covs(method: str) -> bool:
+    return method not in ("ICP", "NDT", "NDT_OMP")
+
+
+def _ndt_d2(params: RegistrationConfig) -> Optional[float]:
+    """NDT's Gaussian-plus-uniform mixture constant d2 (Magnusson 2009,
+    as pclomp's ndt_omp_impl.hpp computeDerivatives forms it), computed in
+    float32 as the JAX package does; None for the other methods."""
+    if params.registration_method not in ("NDT", "NDT_OMP"):
+        return None
+    f32 = np.float32
+    out_ratio = f32(params.reg_ndt_outlier_ratio)
+    res3 = f32(params.reg_resolution) ** 3
+    c1 = f32(10.0) * (f32(1.0) - out_ratio)
+    c2 = out_ratio / res3
+    d3 = -np.log(c2)
+    d1 = -np.log(c1 + c2) - d3
+    return float(f32(-2.0) * np.log(
+        (-np.log(c1 * np.exp(f32(-0.5)) + c2) - d3) / d1))
+
+
+def _voxel_correspondences(params: RegistrationConfig, vox: GaussianVoxelMap,
+                           p_world: torch.Tensor, src_mask: torch.Tensor):
+    """The voxel branch, over any leading row axes: (q, C_q, valid), q the
+    mean of the looked-up voxel, valid where a voxel was found within the
+    correspondence distance."""
+    idx, found = lookup(vox, p_world, src_mask, params.reg_resolution,
+                        method=params.reg_nn_search_method)
+    q = torch.gather(vox.means, -2, idx[..., None].expand(p_world.shape))
+    Cq = torch.gather(vox.covs, -3, idx[..., None, None].expand(
+        p_world.shape + (3,)))
+    d2 = torch.sum((q - p_world) ** 2, dim=-1)
+    gate = d2 <= radius_sq(params.reg_max_correspondence_distance)
+    return q, Cq, src_mask & found & gate
+
+
+def _weights(params: RegistrationConfig, Cq, R, src_covs, r, valid,
+             ndt_d2):
+    """Per-correspondence W (..., N, 3, 3), zero where not valid."""
+    if _use_source_covs(params.registration_method):
+        W = inv3x3(Cq + R @ src_covs @ R.transpose(-1, -2))
+    else:
+        W = inv3x3(Cq)
+    w = valid.to(W.dtype)
+    if ndt_d2 is not None:
+        m = torch.einsum("...a,...ab,...b->...", r, W, r)
+        w = w * ndt_d2 * torch.exp(-0.5 * ndt_d2 * m)
+    return W * w[..., None, None]
+
+
 def _correspondences(params: RegistrationConfig, p_world: torch.Tensor,
                      src_mask: torch.Tensor, target: RegistrationTarget
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (q (N,3), C_q (N,3,3), valid (N,)) at the current source pose."""
+    if target.voxels is not None:
+        return _voxel_correspondences(params, target.voxels, p_world,
+                                      src_mask)
     tg = target.gicp
     _, idx, valid = knn.nn_within(p_world, src_mask, tg.points, tg.mask,
                                   params.reg_max_correspondence_distance)
@@ -138,18 +213,14 @@ def _correspondences(params: RegistrationConfig, p_world: torch.Tensor,
 
 def _gn_step(params: RegistrationConfig, src: GICPCloud,
              tgt: RegistrationTarget, pose: torch.Tensor,
-             ridge: torch.Tensor):
+             ridge: torch.Tensor, ndt_d2: Optional[float] = None):
     """One linearization -> (xi, H, mean error, inliers)."""
     sp = src.points
     R = se3.pose_rotation(pose)
     p_world = se3.pose_apply(pose, sp)
     q, Cq, valid = _correspondences(params, p_world, src.mask, tgt)
     r = q - p_world
-    if params.registration_method != "ICP":
-        W = inv3x3(Cq + R @ src.covs @ R.T)
-    else:
-        W = inv3x3(Cq)
-    W = W * valid.to(W.dtype)[:, None, None]
+    W = _weights(params, Cq, R, src.covs, r, valid, ndt_d2)
     Rskew = R @ se3.skew(sp)
     J = torch.cat([-R.expand(Rskew.shape), Rskew], dim=-1)  # (N, 3, 6)
     WJ = W @ J
@@ -176,9 +247,10 @@ def _run_stage(params: RegistrationConfig, src: GICPCloud,
     n_in = torch.zeros((), dtype=torch.int32, device=dev)
     H = torch.zeros((6, 6), device=dev)
     ridge = hessian_ridge(dev)
+    ndt_d2 = _ndt_d2(params)
     it = 0
     while it < budget:
-        xi, H, err2, n_in = _gn_step(params, src, tgt, pose, ridge)
+        xi, H, err2, n_in = _gn_step(params, src, tgt, pose, ridge, ndt_d2)
         pose = se3.pose_retract(pose, xi)
         it += 1
         done = ((torch.linalg.vector_norm(xi[:3]) < eps)
@@ -208,20 +280,20 @@ def _align_impl(params: RegistrationConfig, source: GICPCloud,
 
     With reg_coarse_stride > 1 the first reg_coarse_iterations run on
     stride-subsampled source and target clouds, and the rest of the budget
-    (at least one iteration) polishes at full resolution.
+    (at least one iteration) polishes at full resolution. A voxel target
+    stays whole in the coarse stage: its lookup costs a source point one
+    search, so the strided source already cuts the stage's cost.
     """
-    if not is_gicp_like(params.registration_method) or target.gicp is None:
-        raise NotImplementedError(
-            f"registration method {params.registration_method} "
-            f"{_VOXEL_LATER}")
     pose0 = init_pose.to(torch.float32)
     stride = int(params.reg_coarse_stride)
     if stride > 1:
-        tg = target.gicp
         src_c = GICPCloud(source.points[::stride], source.mask[::stride],
                           source.covs[::stride])
-        tgt_c = RegistrationTarget(gicp=GICPCloud(
-            tg.points[::stride], tg.mask[::stride], tg.covs[::stride]))
+        tgt_c = target
+        if target.gicp is not None:
+            tg = target.gicp
+            tgt_c = RegistrationTarget(gicp=GICPCloud(
+                tg.points[::stride], tg.mask[::stride], tg.covs[::stride]))
         budget_c = min(params.reg_coarse_iterations, max(max_iters - 1, 0))
         pose_c, it_c, *_ = _run_stage(params, src_c, tgt_c, pose0, budget_c)
         pose, it_f, done, err, n_in, H = _run_stage(
@@ -271,31 +343,31 @@ def _live_lanes(mask: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     return mask & active[:, None]
 
 
-def _gn_rows(params: RegistrationConfig, src: GICPCloud, tgt: GICPCloud,
+def _gn_rows(params: RegistrationConfig, src: GICPCloud, tgt,
              pose: torch.Tensor, active: torch.Tensor,
-             ridge: torch.Tensor):
+             ridge: torch.Tensor, ndt_d2: Optional[float] = None):
     """One linearization of every row -> (xi (B, 6), H (B, 6, 6),
-    mean error (B,), inliers (B,)); `_gn_step` over a batch of rows."""
+    mean error (B,), inliers (B,)); `_gn_step` over a batch of rows.
+    `tgt` is the rows' GICP clouds or their voxel maps."""
     sp = src.points
     R = se3.pose_rotation(pose)[:, None]  # (B, 1, 3, 3)
     p_world = se3.pose_apply(pose[:, None, :], sp)
     sm = _live_lanes(src.mask, active)
-    _, idx, valid = knn.nn_within(p_world, sm, tgt.points, tgt.mask,
-                                  params.reg_max_correspondence_distance)
-    if params.reg_use_reciprocal_correspondences:
-        _, idx_back = knn.nearest_neighbor(tgt.points, p_world, sm,
-                                           src_mask=tgt.mask)
-        lanes = torch.arange(sp.shape[1], device=idx.device)
-        valid = valid & (torch.gather(idx_back, 1, idx) == lanes)
-    q = torch.gather(tgt.points, 1, idx[..., None].expand(-1, -1, 3))
-    Cq = torch.gather(tgt.covs, 1,
-                      idx[..., None, None].expand(-1, -1, 3, 3))
-    r = q - p_world
-    if params.registration_method != "ICP":
-        W = inv3x3(Cq + R @ src.covs @ R.transpose(-1, -2))
+    if isinstance(tgt, GaussianVoxelMap):
+        q, Cq, valid = _voxel_correspondences(params, tgt, p_world, sm)
     else:
-        W = inv3x3(Cq)
-    W = W * valid.to(W.dtype)[..., None, None]
+        _, idx, valid = knn.nn_within(p_world, sm, tgt.points, tgt.mask,
+                                      params.reg_max_correspondence_distance)
+        if params.reg_use_reciprocal_correspondences:
+            _, idx_back = knn.nearest_neighbor(tgt.points, p_world, sm,
+                                               src_mask=tgt.mask)
+            lanes = torch.arange(sp.shape[1], device=idx.device)
+            valid = valid & (torch.gather(idx_back, 1, idx) == lanes)
+        q = torch.gather(tgt.points, 1, idx[..., None].expand(-1, -1, 3))
+        Cq = torch.gather(tgt.covs, 1,
+                          idx[..., None, None].expand(-1, -1, 3, 3))
+    r = q - p_world
+    W = _weights(params, Cq, R, src.covs, r, valid, ndt_d2)
     Rskew = R @ se3.skew(sp)
     J = torch.cat([-R.expand(Rskew.shape), Rskew], dim=-1)  # (B, N, 3, 6)
     WJ = W @ J
@@ -307,7 +379,7 @@ def _gn_rows(params: RegistrationConfig, src: GICPCloud, tgt: GICPCloud,
     return xi, H, err / torch.clamp(n_in, min=1), n_in
 
 
-def _run_rows(params: RegistrationConfig, src: GICPCloud, tgt: GICPCloud,
+def _run_rows(params: RegistrationConfig, src: GICPCloud, tgt,
               pose: torch.Tensor, budget: torch.Tensor, go: bool):
     """Batched Gauss-Newton from `pose` (B, 7), row b for at most
     budget[b] iterations (an int32 tensor on the device; `go` says on the
@@ -327,9 +399,11 @@ def _run_rows(params: RegistrationConfig, src: GICPCloud, tgt: GICPCloud,
     n_in = torch.zeros_like(it)
     H = torch.zeros(nb, 6, 6, device=dev)
     ridge = hessian_ridge(dev)
+    ndt_d2 = _ndt_d2(params)
     active = budget > 0
     while go:
-        xi, H2, err2, n2 = _gn_rows(params, src, tgt, pose, active, ridge)
+        xi, H2, err2, n2 = _gn_rows(params, src, tgt, pose, active, ridge,
+                                    ndt_d2)
         new_pose = se3.pose_retract(pose, xi)
         conv = ((torch.linalg.vector_norm(xi[:, :3], dim=-1) < eps)
                 & (torch.linalg.vector_norm(xi[:, 3:], dim=-1) < eps))
@@ -357,12 +431,15 @@ def _run_rows(params: RegistrationConfig, src: GICPCloud, tgt: GICPCloud,
     return pose, it, done, err, n_in, H
 
 
-def _strided(c: GICPCloud, stride: int) -> GICPCloud:
+def _strided(c, stride: int):
+    """Rows' clouds subsampled by `stride`; a voxel map stays whole."""
+    if isinstance(c, GaussianVoxelMap):
+        return c
     return GICPCloud(*(x[:, ::stride].contiguous() for x in c))
 
 
 def align_rows(params: RegistrationConfig, source: GICPCloud,
-               target: GICPCloud, init_pose: torch.Tensor,
+               target, init_pose: torch.Tensor,
                max_iters: int) -> RegistrationResult:
     """`_align_impl` over R rows at once: row r registers source[r] onto
     target[r] from init_pose[r] (R, 7) within `max_iters` iterations, with
@@ -370,15 +447,13 @@ def align_rows(params: RegistrationConfig, source: GICPCloud,
     max(max_iters - 1, 0)) on stride-subsampled rows) and fine stage. Both
     stages run through `_run_rows`, so a row keeps `_run_stage`'s exits
     and freezes once it has finished, and each sweep launches nn once for
-    every row still active. The fields of the result stack along R.
+    every row still active (a voxel target, a GaussianVoxelMap with a
+    leading R axis, looks its voxels up instead). The fields of the result
+    stack along R.
 
     Row r equals `_align_impl` on row r alone up to float32 rounding: the
     batched products sum in another order (tests/test_torch_multirobot.py).
     """
-    if not is_gicp_like(params.registration_method):
-        raise NotImplementedError(
-            f"registration method {params.registration_method} "
-            f"{_VOXEL_LATER}")
     dev = init_pose.device
     pose = init_pose.to(torch.float32)
     rows = pose.shape[0]
@@ -418,32 +493,13 @@ def _fitness_rows(moved: torch.Tensor, src_mask: torch.Tensor,
     return out
 
 
-def align_pairs_packed(params: RegistrationConfig, tgts, srcs, init_poses,
-                       max_iters, fitness_max_range) -> torch.Tensor:
-    """The back end's pair program: every cloud pair of a tick as a row.
-
-    `tgts`/`srcs` are length-B sequences of per-keyframe `GICPCloud`s of
-    one capacity, on one device; `init_poses` (B, 7), `max_iters` (B,)
-    ints and `fitness_max_range` (B,) floats are host arrays. Row b runs
-    the Gauss-Newton from init_poses[b] for at most max_iters[b]
-    iterations (0: evaluate only), coarse-to-fine as `_align_impl` does
-    (its coarse budget min(reg_coarse_iterations, max(mi - 1, 0))), then
-    takes both fitness flavours from one NN pass against the raw target
-    (getFitnessScore searches the target cloud whatever the method).
-
-    Returns one (B, 12) float32 tensor on the device, so the host reads a
-    bucket back at once:
-
-        row = [pose(7) | converged | iterations | num_inliers |
-               fitness_inf | fitness_range]
-    """
-    if not is_gicp_like(params.registration_method):
-        raise NotImplementedError(
-            f"registration method {params.registration_method} "
-            f"{_VOXEL_LATER}")
-    dev = tgts[0].points.device
-    tgt = GICPCloud(*(torch.stack(x) for x in zip(*tgts)))
-    src = GICPCloud(*(torch.stack(x) for x in zip(*srcs)))
+def _pairs_program(params: RegistrationConfig, tgt, tgt_points, tgt_mask,
+                   src: GICPCloud, init_poses, max_iters,
+                   fitness_max_range) -> torch.Tensor:
+    """The rows of a pair bucket: `tgt` the stacked GICP clouds or voxel
+    maps the Gauss-Newton registers against, (tgt_points, tgt_mask) the
+    raw target clouds the fitness pass searches."""
+    dev = src.points.device
     mi = np.asarray(max_iters, np.int32)
     stride = int(params.reg_coarse_stride)
     budget_c = (np.minimum(np.int32(params.reg_coarse_iterations),
@@ -468,10 +524,51 @@ def align_pairs_packed(params: RegistrationConfig, tgts, srcs, init_poses,
         bool((budget_f > 0).any()))
     iters = iters + it_f
     moved = se3.pose_apply(pose[:, None, :], src.points)
-    fit_inf, fit_r = _fitness_rows(moved, src.mask, tgt.points, tgt.mask,
+    fit_inf, fit_r = _fitness_rows(moved, src.mask, tgt_points, tgt_mask,
                                    fr)
     res = PairResults(pose=pose, converged=done & (n_in > 0),
                       iterations=iters, num_inliers=n_in,
                       fitness_inf=fit_inf, fitness_range=fit_r)
     return torch.cat([res.pose] + [v.to(torch.float32)[:, None]
                                    for v in res[1:]], dim=1)
+
+
+def align_pairs_packed(params: RegistrationConfig, tgts, srcs, init_poses,
+                       max_iters, fitness_max_range) -> torch.Tensor:
+    """The back end's pair program: every cloud pair of a tick as a row.
+
+    `tgts`/`srcs` are length-B sequences of per-keyframe `GICPCloud`s of
+    one capacity, on one device; `init_poses` (B, 7), `max_iters` (B,)
+    ints and `fitness_max_range` (B,) floats are host arrays. Row b runs
+    the Gauss-Newton from init_poses[b] for at most max_iters[b]
+    iterations (0: evaluate only), coarse-to-fine as `_align_impl` does
+    (its coarse budget min(reg_coarse_iterations, max(mi - 1, 0))), then
+    takes both fitness flavours from one NN pass against the raw target
+    (getFitnessScore searches the target cloud whatever the method).
+
+    Returns one (B, 12) float32 tensor on the device, so the host reads a
+    bucket back at once:
+
+        row = [pose(7) | converged | iterations | num_inliers |
+               fitness_inf | fitness_range]
+    """
+    tgt = GICPCloud(*(torch.stack(x) for x in zip(*tgts)))
+    src = GICPCloud(*(torch.stack(x) for x in zip(*srcs)))
+    return _pairs_program(params, tgt, tgt.points, tgt.mask, src,
+                          init_poses, max_iters, fitness_max_range)
+
+
+def align_pairs_voxel_packed(params: RegistrationConfig, tgt_maps,
+                             tgt_clouds, srcs, init_poses, max_iters,
+                             fitness_max_range) -> torch.Tensor:
+    """`align_pairs_packed` for the voxel family (VGICP, NDT): `tgt_maps`
+    are the rows' `GaussianVoxelMap`s (of one capacity: the caller pads
+    them), `tgt_clouds` the matching raw `PointCloud`s, which the fitness
+    pass searches with nn, `srcs` the rows' `GICPCloud`s (identity
+    covariances for NDT). The same packed (B, 12) one-read contract."""
+    vox = GaussianVoxelMap(*(torch.stack(x) for x in zip(*tgt_maps)))
+    src = GICPCloud(*(torch.stack(x) for x in zip(*srcs)))
+    return _pairs_program(params, vox,
+                          torch.stack([c.points for c in tgt_clouds]),
+                          torch.stack([c.mask for c in tgt_clouds]), src,
+                          init_poses, max_iters, fitness_max_range)

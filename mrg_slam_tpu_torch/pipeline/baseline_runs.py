@@ -12,10 +12,12 @@ world, with ground truth for ATE. Ported here:
   6. two robots meeting head on (one window played backwards);
   7. full SLAM through moving occluders;
 
-the ring pose graph, the workload of the solver section and of row 5
-(`5_distributed_mesh_solve`), and a ring that carries every prior and
-plane family (`family_graph_spec`, numpy, for either package's
-GraphSLAM). Each row runs on the card unless `device` says otherwise,
+  5. the ring pose graph solved on one device and over eight ranks
+     (`5_distributed_mesh_solve`, parallel/dist_solver.py);
+
+the ring pose graph, the workload of the solver section and of row 5,
+and a ring that carries every prior and plane family
+(`family_graph_spec`, numpy, for either package's GraphSLAM). Each row runs on the card unless `device` says otherwise,
 and returns the JAX package's keys plus the keyframes (rows 4 and 6: the
 exchange's counts too). `main` (`python -m
 mrg_slam_tpu_torch.pipeline.baseline_runs [out] [--device cpu]`) runs the
@@ -158,15 +160,36 @@ def _slam_row(name, frames, traj, fused, device, cfg=None) -> Dict:
             "keyframe_trajectory": res.keyframe_trajectory}
 
 
+def with_registration_method(cfg: EngineConfig, method: str
+                             ) -> EngineConfig:
+    """`cfg` with `method` in the odometry's and the back end's
+    registration (the voxel family: FAST_VGICP, VGICP, NDT)."""
+    def swap(reg):
+        return dataclasses.replace(reg, registration_method=method)
+
+    return dataclasses.replace(
+        cfg, odometry=dataclasses.replace(
+            cfg.odometry, registration=swap(cfg.odometry.registration)),
+        slam=dataclasses.replace(cfg.slam,
+                                 registration=swap(cfg.slam.registration)))
+
+
 def config2_full_slam(n_frames=120, fused=False,
-                      device: DeviceLike = None) -> Dict:
+                      device: DeviceLike = None,
+                      registration_method: Optional[str] = None) -> Dict:
     """Row 2: full SLAM over 1.25 laps, a tick every 20 frames, through
     `replay` or, with `fused`, `replay_fused`. The dict also carries the
-    optimized keyframe poses."""
+    optimized keyframe poses. `registration_method` replaces the row's
+    SMALL_GICP in the odometry and the back end (the voxel family runs
+    per frame: the fused front end takes the GICP family only)."""
     world = _world()
     traj = circle_trajectory(n_frames, radius=14.0, laps=1.25)
     frames = [(i * 0.1, world.scan(p, seed=i)) for i, p in enumerate(traj)]
-    return _slam_row("2_full_graph_slam", frames, traj, fused, device)
+    if registration_method is None:
+        return _slam_row("2_full_graph_slam", frames, traj, fused, device)
+    return _slam_row(f"2_full_graph_slam_{registration_method}", frames,
+                     traj, fused, device, with_registration_method(
+                         _base_cfg(), registration_method))
 
 
 def floor_cfg() -> EngineConfig:
@@ -383,6 +406,45 @@ def build_ring_graph(n_nodes=256, capacity_nodes=None, capacity_edges=None,
     return gs
 
 
+def config5_distributed(n_nodes=256, n_ranks=8,
+                        device: DeviceLike = None) -> Dict:
+    """Row 5: `build_ring_graph(n_nodes)` solved by the cg LM (40
+    iterations) on one device and over `n_ranks` ranks, each a process on
+    `device` (the card unless said otherwise; ranks that share a card
+    join by gloo). Returns the JAX package's keys ("devices" counts the
+    ranks), whether every rank returned bitwise the same poses, the solve
+    walls and the all-reduces of the distributed solve."""
+    from ..graph import solve
+    from ..parallel import dist_solver as ds
+
+    dev = resolve_device(device)
+    g = build_ring_graph(n_nodes=n_nodes, device="cpu").snapshot()
+    cfg = OptimizerConfig(solver_backend="cg", g2o_solver_num_iterations=40)
+    t0 = time.perf_counter()
+    single = solve.optimize(ds.graph_to(g, dev), cfg)
+    sp = single.poses.cpu().numpy()[:n_nodes, :3]  # ends the solve
+    single_s = time.perf_counter() - t0
+    ranks = ds.run_ranks(ds.solve_graphs, n_ranks, dev, args=([(g, cfg)],))
+    dist = ranks[0][0]
+    return {"config": "5_distributed_mesh_solve",
+            "devices": n_ranks, "nodes": n_nodes,
+            "chi2_single": float(single.chi2_final),
+            "chi2_distributed": dist["chi2_final"],
+            "max_pose_divergence_m": float(np.abs(
+                dist["poses"][:n_nodes, :3] - sp).max()),
+            "ranks_bitwise_equal": ds.ranks_equal(ranks),
+            "backend": ds.group_backend(dev, n_ranks),
+            "single_solve_s": single_s, "distributed_solve_s": max(
+                r[0]["wall_s"] for r in ranks),
+            "lm_iterations": dist["iterations"],
+            "cg_iterations": dist["cg_iterations"],
+            "all_reduces": dist["all_reduces"],
+            "all_reduce_ms": max(r[0]["all_reduce_s"] for r in ranks)
+            / max(dist["all_reduces"], 1) * 1e3,
+            "peak_allocated_bytes": [r[0]["peak_allocated_bytes"]
+                                     for r in ranks]}
+
+
 def _quat_axis_angle(w: np.ndarray) -> np.ndarray:
     """Rotation vectors (..., 3) -> unit quaternions (..., 4), w first."""
     th = np.linalg.norm(w, axis=-1, keepdims=True)
@@ -520,12 +582,6 @@ def family_graph_capacities(spec: Dict) -> Dict[str, int]:
                 capacity_plane_priors=2, capacity_plane_plane=3)
 
 
-# rows of the JAX package's acceptance set that have no port yet, each
-# with the ROADMAP item that brings it
-PENDING = {"5_distributed_mesh_solve":
-           "ROADMAP item 15: the distributed solve (parallel/dist_solver.py,"
-           " config5_distributed) is not ported yet; row 5's single-device "
-           "half runs in chip_smoke.py's solver phase"}
 # what a row dict carries besides its numbers: the stores and the
 # optimized poses stay in memory
 _NOT_SAVED = ("graphs", "keyframe_trajectory")
@@ -563,13 +619,14 @@ def main(out_path: str = "BASELINE_TORCH.json",
          device: DeviceLike = None) -> Dict:
     """Run the acceptance rows and merge them into `out_path`.
 
-    The JAX package's chip row set: rows 1, 2, 3, 4, 6 and 7 and the
-    fused rows 1 and 2, on the card unless `device` says otherwise (with
-    no card and no `device` this raises before a row runs). Card rows
-    land under "results_cuda" with the card's name and power limit
-    beside them, CPU rows under "results", each row tagged with its
-    device; the rows with no port yet are listed under "pending". Other
-    keys of an existing file are kept.
+    The JAX package's row set: rows 1, 2, 3, 4, 6 and 7, the fused rows
+    1 and 2, and row 5 (one device and eight ranks), on the card unless
+    `device` says otherwise (with no card and no `device` this raises
+    before a row runs). Card rows land under "results_cuda" with the
+    card's name and power limit beside them, CPU rows under "results",
+    each row tagged with its device. Other keys of an existing file are
+    kept; the "pending" list of rows without a port is gone, as every row
+    has one.
     """
     dev = resolve_device(device)
     results = [config1_odometry_only(device=dev),
@@ -579,7 +636,8 @@ def main(out_path: str = "BASELINE_TORCH.json",
                config6_reversed_encounter(device=dev),
                config7_dynamic_world(device=dev),
                config1_odometry_only(fused=True, device=dev),
-               config2_full_slam(fused=True, device=dev)]
+               config2_full_slam(fused=True, device=dev),
+               config5_distributed(device=dev)]
     results = [dict(_jsonable(r), device=dev.type) for r in results]
     try:
         with open(out_path) as f:
@@ -589,7 +647,7 @@ def main(out_path: str = "BASELINE_TORCH.json",
     payload["note"] = ("synthetic-world acceptance runs of the PyTorch "
                        "port (mrg_slam_tpu_torch/pipeline/baseline_runs.py"
                        "); BASELINE_SYNTH.json is the JAX package's")
-    payload["pending"] = dict(PENDING)
+    payload.pop("pending", None)
     if dev.type == "cuda":
         payload["results_cuda"] = results
         payload["card"] = card_name()

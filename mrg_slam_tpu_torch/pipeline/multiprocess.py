@@ -259,24 +259,40 @@ def _worker_main(arg_blob: bytes) -> None:
     traj = circle_trajectory(job.total_frames, radius=12.0, laps=1.1)
     lo, hi = job.window
 
-    def wait_for_peers(i: int, max_skew: int) -> None:
-        deadline = time.time() + 60.0
-        while time.time() < deadline:
+    # Both waits bound a stall, not the whole wait: the deadline starts
+    # again whenever a peer's reported progress moves, so a loaded host
+    # that slows every robot does not break the lock step, and a peer
+    # that stops moving fails the run (ROADMAP §3 B11).
+    def wait_for_peers(i: int, max_skew: int, stall_s: float = 60.0) -> None:
+        seen, deadline = None, time.time() + stall_s
+        while True:
             serve_pending()   # a waiting peer may need our graph to move
             prog = [peers[n].call("progress", None) for n in peer_names]
             if all(p is None or p >= i - max_skew for p in prog):
                 return
+            if prog != seen:
+                seen, deadline = prog, time.time() + stall_s
+            elif time.time() > deadline:
+                raise RuntimeError(
+                    f"{job.name}: peers {dict(zip(peer_names, prog))} did "
+                    f"not move for {stall_s:.0f} s before frame {i}")
             time.sleep(0.02)
 
-    def barrier(endpoint, ok, what):
-        deadline = time.time() + 120.0
-        while time.time() < deadline:
+    def barrier(endpoint, ok, what, stall_s: float = 120.0):
+        seen, deadline = None, time.time() + stall_s
+        while True:
             serve_pending()
             vals = [call_serving(n, endpoint, None) for n in peer_names]
             if all(ok(v) for v in vals):
                 return
+            prog = (vals if endpoint == "progress" else
+                    [call_serving(n, "progress", None) for n in peer_names])
+            if (prog, vals) != seen:
+                seen, deadline = (prog, vals), time.time() + stall_s
+            elif time.time() > deadline:
+                raise RuntimeError(f"{job.name}: barrier '{what}' timed "
+                                   f"out ({stall_s:.0f} s without progress)")
             time.sleep(0.02)
-        raise RuntimeError(f"{job.name}: barrier '{what}' timed out")
 
     for fn in (nn_kernel.nn_cuda, stats_kernel.moments_cuda,
                stats_kernel.count_cuda):
@@ -430,14 +446,18 @@ def run_multiprocess(n_robots: int = 2, total_frames: int = 80,
                      tick_every: int = 15, world_seed: int = 11,
                      out_dir: Optional[str] = None,
                      timeout_s: float = 600.0,
-                     device: DeviceLike = None) -> Dict[str, dict]:
+                     device: DeviceLike = None,
+                     cpu_threads: Optional[int] = None) -> Dict[str, dict]:
     """Spawn one robot process per overlapping trajectory window, wait,
     and return the per-robot result dicts (kitti_multirobot_processor.py's
     subprocess topology without ROS). The robots run on the card unless
     `device` says otherwise; with no card and no `device` this raises
     before it spawns anything. A worker that exits non-zero fails the
     run. `out_dir` (default: mrg_slam_mp under the temp directory) gets
-    each robot's log, result JSON and TUM trajectory."""
+    each robot's log, result JSON and TUM trajectory. `cpu_threads` is
+    each worker's torch thread count (default: its share of the cores,
+    cpu_count // n_robots); a caller that shares the host with other
+    work passes fewer."""
     import subprocess
 
     from ..io.synthetic import circle_trajectory
@@ -474,7 +494,8 @@ def run_multiprocess(n_robots: int = 2, total_frames: int = 80,
                 tick_every=tick_every, port=0, out_dir=out_dir,
                 handshake_path=os.path.join(out_dir, f"{name}.addr"),
                 device=str(dev),
-                cpu_threads=max(1, (os.cpu_count() or 1) // n_robots),
+                cpu_threads=(cpu_threads if cpu_threads is not None else
+                             max(1, (os.cpu_count() or 1) // n_robots)),
                 cfg=None))
             job["cfg"] = _default_cfg(
                 name, names, (float(p0[0]), float(p0[1]), float(p0[2]),

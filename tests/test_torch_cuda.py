@@ -1013,3 +1013,95 @@ def test_graph_saved_on_the_card_loads_byte_identical(dev, tmp_path):
                 assert filecmp.cmp(f, tmp_path / str(dev) / sub / d.name
                                    / f.name, shallow=False)
     np.testing.assert_allclose(out[str(dev)], out["cpu"], atol=1e-4)
+
+
+def test_two_rank_gloo_solve_on_the_card_matches_one_device(dev):
+    """Row 5's ring (64 nodes) by cg over two gloo ranks that share the
+    card, CUDA tensors through the host: every rank bitwise equal, chi2
+    within 5e-3 of the one-device solve on the card and poses within
+    2e-2 m (tests/test_torch_dist_solver.py's bounds)."""
+    from mrg_slam_tpu_torch.config import OptimizerConfig
+    from mrg_slam_tpu_torch.graph import solve
+    from mrg_slam_tpu_torch.parallel import dist_solver as ds
+    from mrg_slam_tpu_torch.pipeline.baseline_runs import build_ring_graph
+
+    g = build_ring_graph(64, device="cpu").snapshot()
+    cfgs = [OptimizerConfig(solver_backend=b, g2o_solver_num_iterations=40)
+            for b in ("cg", "dense", "chain")]
+    ranks = ds.run_ranks(ds.solve_graphs, 2, dev,
+                         args=([(g, c) for c in cfgs],))
+    assert ds.ranks_equal(ranks)
+    assert ds.group_backend(dev, 2) == "gloo"
+    for cfg, got in zip(cfgs, ranks[0]):
+        one = solve.optimize(ds.graph_to(g, dev), cfg)
+        want = float(one.chi2_final)
+        assert abs(got["chi2_final"] - want) / want < 5e-3
+        np.testing.assert_allclose(got["poses"][:, :3],
+                                   one.poses.cpu().numpy()[:, :3], rtol=0,
+                                   atol=2e-2)
+        assert got["peak_allocated_bytes"] > 0
+
+
+@pytest.mark.parametrize("method", ["FAST_VGICP", "NDT"])
+def test_voxel_alignment_on_the_card_matches_the_cpu(rng, dev, method):
+    """A voxel map and an align on CUDA tensors against the same on the
+    CPU: the map's keys, counts and valid flags equal, means within 1e-5
+    m, and the solve within 1e-4 with the same iteration count; then the
+    pair program with a registration row and an evaluate-only row."""
+    from mrg_slam_tpu_torch.config import RegistrationConfig
+    from mrg_slam_tpu_torch.models.keyframe import KeyFrame
+    from mrg_slam_tpu_torch.models.pair_runner import PairRequest, PairRunner
+    from mrg_slam_tpu_torch.ops import registration as reg
+    from mrg_slam_tpu_torch.ops.cloud import PointCloud
+    from mrg_slam_tpu_torch.utils import se3
+
+    n = 600
+    floor = np.stack([rng.uniform(-10, 10, n), rng.uniform(-10, 10, n),
+                      rng.normal(scale=0.02, size=n)], 1)
+    wall = np.stack([rng.uniform(-10, 10, n),
+                     10 + rng.normal(scale=0.02, size=n),
+                     rng.uniform(0, 4, n)], 1)
+    wall2 = np.stack([-10 + rng.normal(scale=0.02, size=n),
+                      rng.uniform(-10, 10, n), rng.uniform(0, 4, n)], 1)
+    pts = np.concatenate([floor, wall, wall2]).astype(np.float32)
+    gt = se3.pose_exp(torch.tensor([0.3, -0.2, 0.1, 0.02, 0.03, -0.05]))
+    src = se3.pose_apply(se3.pose_inverse(gt), torch.from_numpy(pts))
+    params = RegistrationConfig(registration_method=method,
+                                reg_transformation_epsilon=1e-4,
+                                reg_maximum_iterations=64,
+                                reg_resolution=2.0)
+    out = {}
+    for d in ("cpu", dev):
+        s = reg.make_source(PointCloud.from_array(src.numpy(), 2048,
+                                                  device=d), params)
+        t = reg.make_target(PointCloud.from_array(pts, 2048, device=d),
+                            params, voxel_capacity=2048)
+        assert t.voxels.keys.device.type == torch.device(d).type
+        out[str(d)] = (t.voxels, reg.align(params, s, t,
+                                           se3.pose_identity(d)))
+    (mc, rc), (mg, rg) = out["cpu"], out[str(dev)]
+    for f in ("keys", "counts", "valid"):
+        assert torch.equal(getattr(mg, f).cpu(), getattr(mc, f))
+    np.testing.assert_allclose(mg.means.cpu().numpy(), mc.means.numpy(),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(rg.pose.cpu().numpy(), rc.pose.numpy(),
+                               atol=1e-4)
+    assert int(rg.iterations) == int(rc.iterations)
+    assert np.linalg.norm(rg.pose.cpu().numpy()[:3] - gt.numpy()[:3]) < 0.1
+
+    def kf(p):
+        return KeyFrame(robot_name="r", stamp=0.0, odom=np.asarray(
+            [0, 0, 0, 1, 0, 0, 0], np.float32), accum_distance=0.0,
+            cloud=PointCloud.from_array(p, 2048, device=dev))
+
+    t_kf, s_kf = kf(pts), kf(src.numpy())
+    ident = np.asarray([0, 0, 0, 1, 0, 0, 0], np.float32)
+    rows = PairRunner(params).run([
+        PairRequest(target=t_kf, source=s_kf, init_pose=ident,
+                    max_iters=64, fitness_max_range=2.0),
+        PairRequest(target=t_kf, source=t_kf, init_pose=ident)])
+    assert t_kf.voxel_map.keys.device.type == "cuda"
+    np.testing.assert_allclose(rows[0].pose, rg.pose.cpu().numpy(),
+                               atol=1e-3)
+    np.testing.assert_array_equal(rows[1].pose, ident)
+    assert rows[1].fitness_inf < 1e-6

@@ -58,7 +58,8 @@ _BACK_END = ("config", "convert", "utils.se3np", "ops.registration",
              "models.persistence", "models.markers", "pipeline.bagfleet",
              "launch", "utils.profiling", "pipeline.tools",
              "pipeline.inspect", "parallel.channel",
-             "pipeline.multiprocess")
+             "pipeline.multiprocess", "ops.gaussian_voxel",
+             "parallel.dist_solver", "parallel.dryrun")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -69,7 +70,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     loaded = int(re.search(r"LOADED (\d+)", out.stdout).group(1))
-    assert loaded >= 68  # every module of the package was imported
+    assert loaded >= 71  # every module of the package was imported
     names = out.stdout.split("NAMES", 1)[1]
     for m in _BACK_END:
         assert f"'mrg_slam_tpu_torch.{m}'" in names, m
@@ -81,7 +82,7 @@ _IMPORT = re.compile(
 
 def test_port_sources_name_neither_jax_nor_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 69
+    assert len(files) >= 72
     for m in _BACK_END:
         assert PORT / (m.replace(".", "/") + ".py") in files, m
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
@@ -91,6 +92,21 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
     assert _IMPORT.search("from mrg_slam_tpu.ops import knn")
     assert _IMPORT.search("import jax.numpy as jnp")
     assert not _IMPORT.search("from mrg_slam_tpu_torch.ops import knn")
+
+
+def test_dist_solver_alone_imports_neither_jax_nor_the_jax_package():
+    """What a rank's fresh interpreter imports (parallel/dist_solver.py
+    and the dry run) loads neither JAX nor the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+             "import mrg_slam_tpu_torch.parallel.dist_solver, "
+             "mrg_slam_tpu_torch.parallel.dryrun; "
+             "print(sorted(n for n in sys.modules if n.split('.')[0] in "
+             "('jax', 'jaxlib', 'mrg_slam_tpu')))")
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT), env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_entry_points_refuse_a_missing_card(tmp_path):
@@ -139,6 +155,21 @@ def test_entry_points_refuse_a_missing_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         baseline_runs.main(str(tmp_path / "BASELINE_TORCH.json"))
     assert not (tmp_path / "BASELINE_TORCH.json").exists()
+    # the distributed solve: no rank is spawned without a card, and nccl
+    # never serves two ranks on one card or the CPU
+    from mrg_slam_tpu_torch.parallel import dist_solver, dryrun
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        baseline_runs.config5_distributed()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dist_solver.run_ranks(dist_solver.solve_graphs, 2, args=([],))
+    with pytest.raises(ValueError, match="nccl"):
+        dist_solver.run_ranks(dist_solver.solve_graphs, 2, "cpu",
+                              args=([],), backend="nccl")
+    with pytest.raises(ValueError, match="one card a rank"):
+        dist_solver.group_backend(torch.device("cuda"), 2, "nccl")
 
 
 def test_worker_bootstrap_imports_the_port_only():

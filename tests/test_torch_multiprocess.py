@@ -12,10 +12,13 @@ remote keyframes merged at least one and within max(3, 0.3 ref), ATE at
 most ref + 0.3 m (the deployment's run-to-run spread, ROADMAP §3 B4), an
 inter-robot loop in the fleet, and fewer than 9000 bytes a merged
 keyframe on the wire (the JAX package's tests/test_multiprocess.py).
+Each robot takes two torch threads, so the two robots do not
+oversubscribe a host that runs other test files beside them.
 
 `baseline_runs.main` runs with its rows replaced by stubs, so no row
-runs here: what is tested is its device handling, the "pending" entry
-and the merge into an existing file.
+runs here: what is tested is its device handling, row 5's distributed
+row beside the others (no "pending" entry is left) and the merge into an
+existing file.
 """
 
 import json
@@ -35,7 +38,7 @@ ROBOTS, FRAMES, TICK = 2, 48, 12
 def test_two_processes_land_in_the_bands_of_the_jax_run(tmp_path):
     results = mp.run_multiprocess(n_robots=ROBOTS, total_frames=FRAMES,
                                   tick_every=TICK, out_dir=str(tmp_path),
-                                  device="cpu")
+                                  device="cpu", cpu_threads=2)
     ref = REF[f"R{ROBOTS}_F{FRAMES}_T{TICK}"]
     assert set(results) == set(ref) == {"alpha", "bravo"}
     bad = []
@@ -81,7 +84,8 @@ def _stub(name):
 
 ROWS = ("config1_odometry_only", "config2_full_slam",
         "config3_floor_augmented", "config4_two_robot",
-        "config6_reversed_encounter", "config7_dynamic_world")
+        "config6_reversed_encounter", "config7_dynamic_world",
+        "config5_distributed")
 
 
 def test_baseline_main_writes_its_rows_and_keeps_the_file(tmp_path,
@@ -91,24 +95,27 @@ def test_baseline_main_writes_its_rows_and_keeps_the_file(tmp_path,
         monkeypatch.setattr(bl, n, fn)
     out = tmp_path / "BASELINE_TORCH.json"
     out.write_text(json.dumps({"results_cuda": [{"config": "kept"}],
-                               "other": 1}))
+                               "other": 1, "pending": {"5": "old"}}))
     payload = bl.main(str(out), device="cpu")
     saved = json.loads(out.read_text())
     assert saved == payload
-    # the chip row set (rows 1, 2, 3, 4, 6, 7 and fused 1, 2), on the CPU
+    # the row set (rows 1, 2, 3, 4, 6, 7, fused 1, 2 and row 5's
+    # distributed row), on the CPU
     assert [r["config"] for r in saved["results"]] == [
         "config1_odometry_only", "config2_full_slam",
         "config3_floor_augmented", "config4_two_robot",
         "config6_reversed_encounter", "config7_dynamic_world",
-        "config1_odometry_only_fused", "config2_full_slam_fused"]
+        "config1_odometry_only_fused", "config2_full_slam_fused",
+        "config5_distributed"]
     assert {r["device"] for r in saved["results"]} == {"cpu"}
     assert all(str(d) == "cpu" for fn in stubs.values() for d in fn.calls)
     row = saved["results"][0]
     assert row["ate_rmse"] == 0.125 and row["per_robot"] == {
         "atlas": [0, 1]}
     assert "graphs" not in row and "keyframe_trajectory" not in row
-    # row 5's distributed half is listed, not dropped
-    assert "item 15" in saved["pending"]["5_distributed_mesh_solve"]
+    # row 5's distributed half is a row now: no row is pending
+    assert "pending" not in saved
+    assert len(stubs["config5_distributed"].calls) == 1
     # other keys of the file stay; the card's rows are not touched
     assert saved["results_cuda"] == [{"config": "kept"}]
     assert saved["other"] == 1 and "card" not in saved

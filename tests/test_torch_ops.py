@@ -383,8 +383,23 @@ def test_align_no_correspondences_matches_jax(rng):
 
 
 def test_registration_voxel_family_raises(rng):
-    pts = PointCloud.from_array(_three_planes(rng), 2048, device="cpu")
+    """An NDT target is a Gaussian voxel map (cells of at least 4 points)
+    with the JAX package's voxels in its slots; a method neither family
+    knows raises (tests/test_torch_voxel.py holds the voxel family)."""
+    pts = _three_planes(rng)
     from mrg_slam_tpu_torch.config import RegistrationConfig
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.make_target(pts, RegistrationConfig(registration_method="NDT"))
+    from test_torch_voxel import check_map
+
+    jp = JRegistrationConfig(registration_method="NDT")
+    tp = config_from_fields(dataclasses.asdict(jp))
+    tgt = treg.make_target(PointCloud.from_array(pts, 2048, device="cpu"),
+                           tp, voxel_capacity=2048)
+    jtgt = jreg.make_target(JCloud.from_array(pts, 2048), jp,
+                            voxel_capacity=2048)
+    assert tgt.gicp is None and int(tgt.voxels.counts.min()) >= 0
+    assert tgt.voxels.counts[tgt.voxels.valid].min() >= 4
+    check_map(jtgt.voxels, tgt.voxels, pts, tp.reg_resolution)
+    with pytest.raises(ValueError, match="unknown registration method"):
+        treg.make_target(PointCloud.from_array(pts, 2048, device="cpu"),
+                         RegistrationConfig(registration_method="LOAM"))
