@@ -1,0 +1,3 @@
+"""`gn_iterations_per_frame` in the cells where it moves `device_ms_per_frame`."""
+
+from benchmark.metrics.gn_iterations_per_frame import UNIT, read  # noqa: F401
