@@ -168,7 +168,6 @@ import os
 import subprocess
 import sys
 import time
-import warnings
 
 from typing import NamedTuple
 
@@ -1138,56 +1137,30 @@ def knn_statistical_cfg(bl):
             slam.registration, reg_covariance_mode="knn")))
 
 
-class SyncReads:
-    """The synchronizing CUDA calls made while it is entered, as
-    `torch.cuda.set_sync_debug_mode("warn")` reports them (each costs a
-    Python warning, a few us): `count()` of them so far, and `top(k)`,
-    the k code lines that made the most, as "file:line"."""
+def sync_top(audit, k=8):
+    """The k code lines that made the most of a `utils.profiling.SyncAudit`'s
+    synchronizing calls, as ("file:line", count)."""
+    import collections
 
-    def __init__(self, torch):
-        self.torch, self.seen = torch, []
-
-    def __enter__(self):
-        self._catch = warnings.catch_warnings(record=True)
-        self.seen = self._catch.__enter__()
-        warnings.simplefilter("always")
-        self.torch.cuda.set_sync_debug_mode("warn")
-        return self
-
-    def __exit__(self, *exc):
-        self.torch.cuda.set_sync_debug_mode("default")
-        self._catch.__exit__(*exc)
-
-    def _reads(self):
-        # the mode's own one-time notice also speaks of synchronizing
-        return [w for w in self.seen
-                if "called a synchronizing CUDA operation" in str(w.message)]
-
-    def count(self):
-        return len(self._reads())
-
-    def top(self, k=8):
-        import collections
-
-        where = collections.Counter(
-            f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
-            for w in self._reads())
-        return where.most_common(k)
+    return collections.Counter(
+        f"{os.path.relpath(f, ROOT)}:{line}"
+        for f, line, _ in audit.sites).most_common(k)
 
 
 def replay_row(torch, name, run, ref=None, sync=None):
     """One acceptance row through the port's entry point, the kernels'
     counts from 0 just before it: -> its metrics. The host reads are those
-    `sync` (a SyncReads, a new one by default) sees while the row runs,
-    with the code lines that made the most."""
+    `sync` (a `utils.profiling.SyncAudit`, a new one by default) sees
+    while the row runs, with the code lines that made the most."""
     from mrg_slam_tpu_torch.ops import nn_kernel, stats_kernel
     from mrg_slam_tpu_torch.ops import registration as reg
+    from mrg_slam_tpu_torch.utils.profiling import SyncAudit
 
     counters = (nn_kernel.nn_cuda, stats_kernel.moments_cuda,
                 stats_kernel.count_cuda)
     for fn in counters:
         fn.launches = 0
-    sync = sync or SyncReads(torch)
+    sync = sync or SyncAudit("cuda")
     with GnCounter(reg) as gn, sync:
         r = run()
     reads = sync.count()
@@ -1197,7 +1170,7 @@ def replay_row(torch, name, run, ref=None, sync=None):
              frames_per_s=r["frames_per_s"],
              gn_iterations_per_frame=gn.iterations / n,
              host_reads_per_frame=reads / n,
-             host_read_sources=[[w, c / n] for w, c in sync.top()],
+             host_read_sources=[[w, c / n] for w, c in sync_top(sync)],
              launches=dict(zip(("nn", "moments", "count"),
                                (fn.launches for fn in counters))),
              ref=ref or REF_REPLAY[name])
@@ -1426,9 +1399,10 @@ def replay_phase(torch):
 class FloorCalls:
     """Installed over `FloorDetection.detect` for one run: the wall of
     each call (it ends on its one packed host read, so the wall is the
-    whole call), the host reads each call made as `sync` (a SyncReads,
-    entered around the run) sees them, the accepted detections, and that
-    every call got a cloud on the card. Passes every call on."""
+    whole call), the host reads each call made as `sync` (a
+    `utils.profiling.SyncAudit`, entered around the run) sees them, the
+    accepted detections, and that every call got a cloud on the card.
+    Passes every call on."""
 
     def __init__(self, cls, sync):
         self.cls, self.fn, self.sync = cls, cls.detect, sync
@@ -1463,8 +1437,9 @@ def floor_row(torch):
     max(3, 0.1 ref), and one host read in every floor detection call."""
     from mrg_slam_tpu_torch.models.floor_detection import FloorDetection
     from mrg_slam_tpu_torch.pipeline import baseline_runs as bl
+    from mrg_slam_tpu_torch.utils.profiling import SyncAudit
 
-    sync = SyncReads(torch)
+    sync = SyncAudit("cuda")
     with FloorCalls(FloorDetection, sync) as calls:
         m, r = replay_row(torch, "3_floor_augmented",
                           bl.config3_floor_augmented, REF_FLOOR, sync)
@@ -1719,12 +1694,13 @@ def exchange_row(torch, name, run):
     the code lines that make the most; the kernels' launches."""
     from mrg_slam_tpu_torch.ops import nn_kernel, stats_kernel
     from mrg_slam_tpu_torch.ops import registration as reg
+    from mrg_slam_tpu_torch.utils.profiling import SyncAudit
 
     counters = (nn_kernel.nn_cuda, stats_kernel.moments_cuda,
                 stats_kernel.count_cuda)
     for fn in counters:
         fn.launches = 0
-    sync = SyncReads(torch)
+    sync = SyncAudit("cuda")
     with GnCounter(reg) as gn, ExchangeLog(torch, sync) as xlog, sync:
         r = run()
     n = sum(r["robot_frames"].values())
@@ -1735,7 +1711,7 @@ def exchange_row(torch, name, run):
              frames_per_s_total=r["frames_per_s_total"], wall_s=r["wall_s"],
              ticks=xlog.ticks, gn_iterations_per_frame=gn.iterations / n,
              host_reads_per_frame=reads / n,
-             host_read_sources=[[w, c / n] for w, c in sync.top()],
+             host_read_sources=[[w, c / n] for w, c in sync_top(sync)],
              service_calls=len(xlog.service_reads),
              service_reads=int(sum(xlog.service_reads)),
              remote_keyframes_prefetched=xlog.remote_prefetched,
@@ -1822,17 +1798,18 @@ def optimize_many_check(torch, graphs):
     import inspect
 
     from mrg_slam_tpu_torch.graph import builder
+    from mrg_slam_tpu_torch.utils.profiling import SyncAudit
 
     batch = [copy.deepcopy(g) for g in graphs]
     alone = [copy.deepcopy(g) for g in graphs]
     src, first = inspect.getsourcelines(builder._upload)
     upload = range(first, first + len(src))
     t0 = time.perf_counter()
-    with SyncReads(torch) as sync:
+    with SyncAudit("cuda") as sync:
         builder.optimize_many(batch)
     batch_ms = (time.perf_counter() - t0) * 1e3
-    reads = [w for w in sync._reads()
-             if not (w.filename == builder.__file__ and w.lineno in upload)]
+    reads = [(f, line) for f, line, _ in sync.sites
+             if not (f == builder.__file__ and line in upload)]
     t0 = time.perf_counter()
     for g in alone:
         g.optimize()
@@ -2414,6 +2391,7 @@ def launch_sessions(torch, inp, work):
     from mrg_slam_tpu_torch.pipeline.replay import Robot, replay
     from mrg_slam_tpu_torch.utils import se3np
     from mrg_slam_tpu_torch.utils.metrics import ate_rmse
+    from mrg_slam_tpu_torch.utils.profiling import SyncAudit
     from mrg_slam_tpu_torch.utils.tum import load_tum
 
     n1 = LAUNCH_FRAMES
@@ -2442,7 +2420,7 @@ def launch_sessions(torch, inp, work):
     for _, fn in counters:
         fn.launches = 0
     out1 = work / "session1"
-    sync = SyncReads(torch)
+    sync = SyncAudit("cuda")
     with LaunchLog(torch) as log1, sync:
         t0 = time.perf_counter()
         rc = launch.main(launch_argv(config, bag, out1))
@@ -2460,7 +2438,7 @@ def launch_sessions(torch, inp, work):
               frames_per_s=summary["frames_per_s"], wall_s=s1_s,
               decode_ms_per_frame=log1.decode_s / max(log1.decoded, 1) * 1e3,
               host_reads_per_frame=sync.count() / n1,
-              host_read_sources=[[w, c / n1] for w, c in sync.top()],
+              host_read_sources=[[w, c / n1] for w, c in sync_top(sync)],
               launches={k: fn.launches for k, fn in counters})
     ref = REF_LAUNCH["session1"]
     log(f"# launch session 1 (CLI, rosbag, per frame): {n1} frames at "
@@ -2481,7 +2459,7 @@ def launch_sessions(torch, inp, work):
     slam = MrgSlam(cfg.slam)
     loaded = persistence.load_graph(slam, out1 / "graph")
     slam.db.flush_loaded_graph(slam.loop_detector.loop_manager)
-    with SyncReads(torch) as sync_save:
+    with SyncAudit("cuda") as sync_save:
         t0 = time.perf_counter()
         persistence.save_graph(slam, work / "graph_again")
         save_ms = (time.perf_counter() - t0) * 1e3

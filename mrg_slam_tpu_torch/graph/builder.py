@@ -30,6 +30,7 @@ import torch
 
 from ..config import OptimizerConfig
 from ..runtime import DeviceLike, resolve_device
+from ..utils import profiling
 from . import chain_solver, solve
 from .chordal import chordal_init
 from .types import (KERNEL_IDS, PLANE_PLANE_IDENTITY, PLANE_PLANE_PARALLEL,
@@ -57,7 +58,9 @@ def _upload(device: torch.device, arrays) -> list:
     arrays = [np.asarray(x, np.int32) if x.dtype == bool else x
               for x in arrays]
     flat = torch.from_numpy(np.concatenate([x.ravel() for x in arrays]))
-    flat = flat.to(device)
+    # from pageable host memory: the copy waits for the stream
+    with profiling.span("read.graph_upload"):
+        flat = flat.to(device)
     out, o = [], 0
     for x in arrays:
         out.append(flat[o:o + x.size].view(x.shape))
@@ -462,27 +465,30 @@ class GraphSLAM:
             aux = self._chain_aux()
         res = solve.optimize(g, cfg, aux=aux)
         t1 = time.perf_counter()
-        mode = solve.resolve_marginals_mode(cfg.per_tick_marginals,
-                                            self.cap["nodes"],
-                                            self.cap["planes"])
-        if mode == "cg" and aux is not None:
-            mode = "chain"
-        p = self._n_planes
-        parts = [res.poses.reshape(-1), res.planes.reshape(-1),
-                 torch.stack([res.chi2_initial, res.chi2_final])]
-        if mode != "none" and n:
-            g_opt = g._replace(poses=res.poses, planes=res.planes)
-            if mode == "chain":
-                cov = chain_solver.chain_marginals(
-                    g_opt, aux, solve._chain_K(g_opt.n_nodes))
-            elif mode == "cg":
-                cov = solve.marginals_selected(
-                    self._live(g_opt),
-                    torch.arange(n, device=self.device))
-            else:
-                cov = solve.marginals(g_opt, exact=(mode == "exact"))
-            parts.append(cov.reshape(-1))
-        flat = torch.cat(parts).cpu().numpy()
+        with profiling.span("graph.marginals"):
+            mode = solve.resolve_marginals_mode(cfg.per_tick_marginals,
+                                                self.cap["nodes"],
+                                                self.cap["planes"])
+            if mode == "cg" and aux is not None:
+                mode = "chain"
+            p = self._n_planes
+            parts = [res.poses.reshape(-1), res.planes.reshape(-1),
+                     torch.stack([res.chi2_initial, res.chi2_final])]
+            if mode != "none" and n:
+                g_opt = g._replace(poses=res.poses, planes=res.planes)
+                if mode == "chain":
+                    cov = chain_solver.chain_marginals(
+                        g_opt, aux, solve._chain_K(g_opt.n_nodes))
+                elif mode == "cg":
+                    cov = solve.marginals_selected(
+                        self._live(g_opt),
+                        torch.arange(n, device=self.device))
+                else:
+                    cov = solve.marginals(g_opt, exact=(mode == "exact"))
+                parts.append(cov.reshape(-1))
+            packed = torch.cat(parts)
+            with profiling.span("read.graph_packed"):
+                flat = packed.cpu().numpy()
         npose, nplane = res.poses.numel(), res.planes.numel()
         self._poses[:n] = flat[:npose].reshape(-1, 7)[:n]
         self._planes[:p] = flat[npose:npose + nplane].reshape(-1, 4)[:p]
@@ -543,26 +549,29 @@ def optimize_many(graphs) -> None:
     res = solve.optimize_many(snaps, cfg)
     t1 = time.perf_counter()
     R = len(graphs)
-    mode = solve.resolve_marginals_mode(cfg.per_tick_marginals,
-                                        caps["nodes"], caps["planes"])
-    parts = [res.poses.reshape(R, -1), res.planes.reshape(R, -1),
-             torch.stack([res.chi2_initial, res.chi2_final,
-                          res.iterations.to(torch.float32)], dim=1)]
-    if mode != "none" and any(g.num_nodes for g in graphs):
-        opts = [s._replace(poses=res.poses[r], planes=res.planes[r])
-                for r, s in enumerate(snaps)]
-        if mode == "cg":
-            cov = torch.zeros((R, caps["nodes"], 6, 6),
-                              device=res.poses.device)
-            for r, (g, o) in enumerate(zip(graphs, opts)):
-                if g.num_nodes:
-                    cov[r, :g.num_nodes] = solve.marginals_selected(
-                        g._live(o), torch.arange(g.num_nodes,
-                                                 device=g.device))
-        else:
-            cov = solve.marginals_many(opts, exact=(mode == "exact"))
-        parts.append(cov.reshape(R, -1))
-    flat = torch.cat(parts, dim=1).cpu().numpy()  # the one packed read
+    with profiling.span("graph.marginals"):
+        mode = solve.resolve_marginals_mode(cfg.per_tick_marginals,
+                                            caps["nodes"], caps["planes"])
+        parts = [res.poses.reshape(R, -1), res.planes.reshape(R, -1),
+                 torch.stack([res.chi2_initial, res.chi2_final,
+                              res.iterations.to(torch.float32)], dim=1)]
+        if mode != "none" and any(g.num_nodes for g in graphs):
+            opts = [s._replace(poses=res.poses[r], planes=res.planes[r])
+                    for r, s in enumerate(snaps)]
+            if mode == "cg":
+                cov = torch.zeros((R, caps["nodes"], 6, 6),
+                                  device=res.poses.device)
+                for r, (g, o) in enumerate(zip(graphs, opts)):
+                    if g.num_nodes:
+                        cov[r, :g.num_nodes] = solve.marginals_selected(
+                            g._live(o), torch.arange(g.num_nodes,
+                                                     device=g.device))
+            else:
+                cov = solve.marginals_many(opts, exact=(mode == "exact"))
+            parts.append(cov.reshape(R, -1))
+        packed = torch.cat(parts, dim=1)
+        with profiling.span("read.graph_packed"):  # the one packed read
+            flat = packed.cpu().numpy()
     t2 = time.perf_counter()
     npose, nplane = res.poses[0].numel(), res.planes[0].numel()
     for g, row in zip(graphs, flat):

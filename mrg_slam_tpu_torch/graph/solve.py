@@ -54,7 +54,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from ..config import OptimizerConfig
-from ..utils import se3
+from ..utils import profiling, se3
 from . import edges as E
 from .robust import robust_rho_and_weight
 from .types import PoseGraphData, plane_retract
@@ -365,8 +365,11 @@ def pcg_solve(A, Minv, b, max_iters: int, tol):
                         device=b[0].device)
     for i in range(max_iters):
         live = torch.sqrt(_dot(r, r)) > tol * b_norm
-        if i % CG_CHECK_EVERY == 0 and not bool(live.any()):
-            break
+        if i % CG_CHECK_EVERY == 0:
+            with profiling.span("read.cg_check"):
+                left = bool(live.any())
+            if not left:
+                break
         Ap = A(p)
         alpha = rz / (_dot(p, Ap) + 1e-30)
         x_new = axpy(alpha, x, p)
@@ -649,46 +652,50 @@ def optimize(g: PoseGraphData, cfg: OptimizerConfig,
         edge_group = None  # the graph is whole on every rank
     # one linearization per iteration: an accepted step hands its trial
     # linearization on, a rejected one keeps the current
-    lin = linearize(g, edge_group)
-    chi2_0 = chi2 = lin.chi2
-    lam = torch.full((), cfg.lm_initial_lambda if is_lm else 1e-9,
-                     device=dev)
-    nu = torch.full_like(lam, 2.0)
-    g0norm = torch.full_like(lam, -1.0)
-    cg_iters = torch.zeros((), dtype=torch.int64, device=dev)
-    failed = torch.zeros((), dtype=torch.bool, device=dev)
-    it = 0
-    while it < cfg.g2o_solver_num_iterations:
-        if backend == "dense":
-            H, b, free = assemble_dense(g, lin, group)
-            x, pred = dense_delta(H, b, free, lam)
-            dx_n, dx_p = x[:6 * n].view(n, 6), x[6 * n:].view(p, 3)
-        elif backend == "chain":
-            dx_n, dx_p, pred, ok = chain_solver.chain_delta(
-                g, lin, lam, aux, K, group, n_shards)
-            failed = ~ok
-        else:
-            dx_n, dx_p, pred, gnorm, k = cg_delta(
-                g, lin, lam, g0norm, cfg.cg_max_iterations, cfg.cg_tol,
-                group)
-            g0norm = torch.where(g0norm < 0, gnorm, g0norm)
-            cg_iters = cg_iters + k
-        g_new = _retract_all(g, dx_n, dx_p)
-        lin_new = linearize(g_new, edge_group)
-        chi2_new = lin_new.chi2
-        accept, lam, nu, done = _lm_schedule(chi2, chi2_new, pred, lam, nu,
-                                             is_lm, cfg.chi2_rel_tol)
-        g, lin = _take(accept, g_new, lin_new, g, lin)
-        chi2 = torch.where(accept, chi2_new, chi2)
-        it += 1
-        # the one host read of the iteration
-        stop, bad = torch.stack([done, failed]).tolist()
-        if bad:
-            raise RuntimeError(
-                "chain solve: a segment or separator factorization failed "
-                f"in LM iteration {it}")
-        if stop:
-            break
+    with profiling.span("lm"):
+        lin = linearize(g, edge_group)
+        chi2_0 = chi2 = lin.chi2
+        lam = torch.full((), cfg.lm_initial_lambda if is_lm else 1e-9,
+                         device=dev)
+        nu = torch.full_like(lam, 2.0)
+        g0norm = torch.full_like(lam, -1.0)
+        cg_iters = torch.zeros((), dtype=torch.int64, device=dev)
+        failed = torch.zeros((), dtype=torch.bool, device=dev)
+        it = 0
+        while it < cfg.g2o_solver_num_iterations:
+            with profiling.span("lm.iteration"):
+                if backend == "dense":
+                    H, b, free = assemble_dense(g, lin, group)
+                    x, pred = dense_delta(H, b, free, lam)
+                    dx_n = x[:6 * n].view(n, 6)
+                    dx_p = x[6 * n:].view(p, 3)
+                elif backend == "chain":
+                    dx_n, dx_p, pred, ok = chain_solver.chain_delta(
+                        g, lin, lam, aux, K, group, n_shards)
+                    failed = ~ok
+                else:
+                    dx_n, dx_p, pred, gnorm, k = cg_delta(
+                        g, lin, lam, g0norm, cfg.cg_max_iterations,
+                        cfg.cg_tol, group)
+                    g0norm = torch.where(g0norm < 0, gnorm, g0norm)
+                    cg_iters = cg_iters + k
+                g_new = _retract_all(g, dx_n, dx_p)
+                lin_new = linearize(g_new, edge_group)
+                chi2_new = lin_new.chi2
+                accept, lam, nu, done = _lm_schedule(
+                    chi2, chi2_new, pred, lam, nu, is_lm, cfg.chi2_rel_tol)
+                g, lin = _take(accept, g_new, lin_new, g, lin)
+                chi2 = torch.where(accept, chi2_new, chi2)
+                it += 1
+                # the one host read of the iteration
+                with profiling.span("read.lm_iteration"):
+                    stop, bad = torch.stack([done, failed]).tolist()
+                if bad:
+                    raise RuntimeError(
+                        "chain solve: a segment or separator factorization "
+                        f"failed in LM iteration {it}")
+                if stop:
+                    break
     return OptimizeResult(poses=g.poses, planes=g.planes,
                           chi2_initial=chi2_0, chi2_final=chi2,
                           iterations=it, lambda_final=lam,
@@ -717,31 +724,39 @@ def optimize_many(gs: Sequence[PoseGraphData],
     R, n, p = len(gs), gs[0].n_nodes, gs[0].n_planes
     dev = gs[0].poses.device
     is_lm = cfg.g2o_solver_type.startswith("lm")
-    lins = [linearize(g) for g in gs]
-    chi2_0 = chi2 = torch.stack([lin.chi2 for lin in lins])
-    lam = torch.full((R,), cfg.lm_initial_lambda if is_lm else 1e-9,
-                     device=dev)
-    nu = torch.full_like(lam, 2.0)
-    done = torch.zeros(R, dtype=torch.bool, device=dev)
-    iters = torch.zeros(R, dtype=torch.int64, device=dev)
-    for _ in range(cfg.g2o_solver_num_iterations):
-        systems = [assemble_dense(g, lin) for g, lin in zip(gs, lins)]
-        x, pred = dense_delta(*(torch.stack(t) for t in zip(*systems)), lam)
-        trials = [_retract_all(g, x[r, :6 * n].view(n, 6),
-                               x[r, 6 * n:].view(p, 3))
-                  for r, g in enumerate(gs)]
-        lins_new = [linearize(t) for t in trials]
-        chi2_new = torch.stack([lin.chi2 for lin in lins_new])
-        accept, lam, nu, done_now = _lm_schedule(
-            chi2, chi2_new, pred, lam, nu, is_lm, cfg.chi2_rel_tol, done)
-        gs, lins = map(list, zip(*(
-            _take(accept[r], trials[r], lins_new[r], gs[r], lins[r])
-            for r in range(R))))
-        chi2 = torch.where(accept, chi2_new, chi2)
-        iters = iters + (~done).long()
-        done = done_now
-        if bool(done.all()):  # the one host read of the iteration
-            break
+    with profiling.span("lm"):
+        lins = [linearize(g) for g in gs]
+        chi2_0 = chi2 = torch.stack([lin.chi2 for lin in lins])
+        lam = torch.full((R,), cfg.lm_initial_lambda if is_lm else 1e-9,
+                         device=dev)
+        nu = torch.full_like(lam, 2.0)
+        done = torch.zeros(R, dtype=torch.bool, device=dev)
+        iters = torch.zeros(R, dtype=torch.int64, device=dev)
+        for _ in range(cfg.g2o_solver_num_iterations):
+            with profiling.span("lm.iteration"):
+                systems = [assemble_dense(g, lin)
+                           for g, lin in zip(gs, lins)]
+                x, pred = dense_delta(
+                    *(torch.stack(t) for t in zip(*systems)), lam)
+                trials = [_retract_all(g, x[r, :6 * n].view(n, 6),
+                                       x[r, 6 * n:].view(p, 3))
+                          for r, g in enumerate(gs)]
+                lins_new = [linearize(t) for t in trials]
+                chi2_new = torch.stack([lin.chi2 for lin in lins_new])
+                accept, lam, nu, done_now = _lm_schedule(
+                    chi2, chi2_new, pred, lam, nu, is_lm, cfg.chi2_rel_tol,
+                    done)
+                gs, lins = map(list, zip(*(
+                    _take(accept[r], trials[r], lins_new[r], gs[r], lins[r])
+                    for r in range(R))))
+                chi2 = torch.where(accept, chi2_new, chi2)
+                iters = iters + (~done).long()
+                done = done_now
+                # the one host read of the iteration
+                with profiling.span("read.lm_iteration"):
+                    stop = bool(done.all())
+                if stop:
+                    break
     return OptimizeResult(poses=torch.stack([g.poses for g in gs]),
                           planes=torch.stack([g.planes for g in gs]),
                           chi2_initial=chi2_0, chi2_final=chi2,

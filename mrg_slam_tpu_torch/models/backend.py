@@ -53,7 +53,7 @@ from ..parallel.messages import (EdgeMsg, GraphMsg, KeyFrameMsg,
                                  PoseWithName, PublishGraphRequest,
                                  SlamStatus)
 from ..runtime import DeviceLike
-from ..utils import se3np
+from ..utils import profiling, se3np
 from .graph_database import GraphDatabase
 from .keyframe import EDGE_ANCHOR
 from .keyframe_updater import KeyframeUpdater
@@ -111,9 +111,10 @@ def _tick_insert(db: GraphDatabase, stats: TickStats, deferred,
                  edge_results, loops) -> None:
     """The tick's deferred odometry edges, weighted by their fitness, and
     its accepted loops into the graph."""
-    stats.num_loops = len(loops)
-    db.finalize_edges(deferred, [r.fitness_inf for r in edge_results])
-    db.insert_loops(loops)
+    with profiling.span("loops.resolve"):
+        stats.num_loops = len(loops)
+        db.finalize_edges(deferred, [r.fitness_inf for r in edge_results])
+        db.insert_loops(loops)
 
 
 def _pair_stage(db: GraphDatabase, loop_detector: LoopDetector, pre,
@@ -281,12 +282,13 @@ class MrgSlam:
     def optimization_tick(self, now: float = 0.0) -> Optional[TickStats]:
         """optimization_timer_callback (:802): flush -> loops -> optimize.
         Returns None when there was nothing to do."""
-        pre = self._tick_begin(now)
-        if pre is None:
-            return None
-        stats = _loops_and_solve(self.db, self.loop_detector, pre,
-                                 [self.status])
-        self._tick_post(stats)
+        with profiling.request("tick"):
+            pre = self._tick_begin(now)
+            if pre is None:
+                return None
+            stats = _loops_and_solve(self.db, self.loop_detector, pre,
+                                     [self.status])
+            self._tick_post(stats)
         return stats
 
     def optimization_tick_async(self, now: float = 0.0) -> Future:
@@ -311,27 +313,31 @@ class MrgSlam:
         """Init, queue flushes and the deferred-edge fitness requests.
         Returns (stats, deferred_edges, edge_requests), or None when the
         tick has nothing to do."""
-        if not self._init_done and self.db.keyframe_queue:
-            # set_init_pose (:458): odom2map starts at the configured pose
-            self.trans_odom2map = self.init_pose.copy()
-            self._init_done = True
-            self.status.initialized = True
+        with profiling.span("tick.flush"):
+            if not self._init_done and self.db.keyframe_queue:
+                # set_init_pose (:458): odom2map starts at the configured
+                # pose
+                self.trans_odom2map = self.init_pose.copy()
+                self._init_done = True
+                self.status.initialized = True
 
-        pending_edges = self.db.flush_keyframe_queue(self.trans_odom2map,
-                                                     defer_info=True)
-        flushed = bool(pending_edges)
-        flushed |= self.db.flush_static_keyframe_queue()
-        flushed |= self.db.flush_graph_queue(self.loop_detector.loop_manager)
-        flushed |= self.db.flush_loaded_graph(
-            self.loop_detector.loop_manager)
-        flushed |= _flush_processors(
-            self.db, (self.floor_processor, self.gps_processor,
-                      self.imu_processor), self.db.own_keyframes())
+            pending_edges = self.db.flush_keyframe_queue(
+                self.trans_odom2map, defer_info=True)
+            flushed = bool(pending_edges)
+            flushed |= self.db.flush_static_keyframe_queue()
+            flushed |= self.db.flush_graph_queue(
+                self.loop_detector.loop_manager)
+            flushed |= self.db.flush_loaded_graph(
+                self.loop_detector.loop_manager)
+            flushed |= _flush_processors(
+                self.db, (self.floor_processor, self.gps_processor,
+                          self.imu_processor), self.db.own_keyframes())
         if not flushed and not self.db.new_keyframes:
             return None
         # covariances of the new keyframes (own and merged) that came
         # without them
-        self.loop_detector.runner.prefetch_batch(self.db.new_keyframes)
+        with profiling.span("tick.prefetch"):
+            self.loop_detector.runner.prefetch_batch(self.db.new_keyframes)
 
         # odometry edges whose information needs a fitness pass ride in
         # the loop detector's batch
@@ -345,28 +351,29 @@ class MrgSlam:
     def _tick_post(self, stats: TickStats) -> None:
         """After the solve: this robot's odom->map and every other
         robot's re-estimated, and the trajectory snapshot."""
-        # this robot's odom2map from its latest keyframe (:864-880)
-        prev = self.db.prev_robot_keyframe
-        if prev is not None and prev.node_id is not None:
-            est = prev.estimate(self.db.graph)
-            self.trans_odom2map = se3np.pose_compose(
-                est, se3np.pose_inverse(prev.odom))
-        # each other robot's from its latest merged keyframe (:871-880),
-        # and its position in this robot's map frame with it
-        for name, (kf_uuid, kf_odom) in self.db.others_last_kf.items():
-            kf = self.db.uuid_keyframe_map.get(kf_uuid)
-            if kf is None or kf.node_id is None:
-                continue
-            o2m = se3np.pose_compose(kf.estimate(self.db.graph),
-                                     se3np.pose_inverse(kf_odom))
-            self.others_odom2map[name] = o2m
-            odom_msg = self.others_odom_poses.get(name)
-            if odom_msg is not None:
-                self.others_map_poses[name] = se3np.pose_compose(
-                    o2m, odom_msg.pose)
-        # per-tick trajectory snapshot (:896 -> graph_database.cpp:599)
-        self.db.save_keyframe_poses()
-        self.tick_stats.append(stats)
+        with profiling.span("tick.post"):
+            # this robot's odom2map from its latest keyframe (:864-880)
+            prev = self.db.prev_robot_keyframe
+            if prev is not None and prev.node_id is not None:
+                est = prev.estimate(self.db.graph)
+                self.trans_odom2map = se3np.pose_compose(
+                    est, se3np.pose_inverse(prev.odom))
+            # each other robot's from its latest merged keyframe (:871-880),
+            # and its position in this robot's map frame with it
+            for name, (kf_uuid, kf_odom) in self.db.others_last_kf.items():
+                kf = self.db.uuid_keyframe_map.get(kf_uuid)
+                if kf is None or kf.node_id is None:
+                    continue
+                o2m = se3np.pose_compose(kf.estimate(self.db.graph),
+                                         se3np.pose_inverse(kf_odom))
+                self.others_odom2map[name] = o2m
+                odom_msg = self.others_odom_poses.get(name)
+                if odom_msg is not None:
+                    self.others_map_poses[name] = se3np.pose_compose(
+                        o2m, odom_msg.pose)
+            # per-tick trajectory snapshot (:896 -> graph_database.cpp:599)
+            self.db.save_keyframe_poses()
+            self.tick_stats.append(stats)
 
     # ------------------------------------------------------------------
     # the graph exchange

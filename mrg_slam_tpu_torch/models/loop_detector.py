@@ -25,7 +25,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..config import LoopClosureConfig, RegistrationConfig
-from ..utils import se3np
+from ..utils import profiling, se3np
 from .graph_database import GraphDatabase, Loop
 from .keyframe import KeyFrame
 from .pair_runner import PairRequest, PairRunner
@@ -60,7 +60,6 @@ class LoopDetector:
         self.runner = PairRunner(reg_cfg)
         # stats mirroring loop_detector.hpp:140-141
         self.loop_detection_times: List[float] = []
-        self.loop_candidates_sizes: List[int] = []
 
     # ------------------------------------------------------------------
     def detect(self, db: GraphDatabase,
@@ -119,38 +118,39 @@ class LoopDetector:
         extras, and check_slices[(j, c)] = (row_offset, checks) locates
         candidate c's neighbor-check rows.
         """
-        jobs: List[Tuple[KeyFrame, List[KeyFrame]]] = []
-        requests: List[PairRequest] = list(extra_requests)
-        for new_kf in db.new_keyframes:
-            candidates = self.find_candidates(new_kf, db)
-            if not candidates:
-                continue
-            self.loop_candidates_sizes.append(len(candidates))
-            new_est = new_kf.estimate(db.graph)
-            for cand in candidates:
-                requests.append(PairRequest(
-                    target=new_kf, source=cand,
-                    init_pose=self._guess(new_est, cand.estimate(db.graph)),
-                    max_iters=self.reg_cfg.reg_maximum_iterations,
-                    fitness_max_range=self.cfg.fitness_score_max_range))
-            jobs.append((new_kf, candidates))
+        with profiling.span("loops.build"):
+            jobs: List[Tuple[KeyFrame, List[KeyFrame]]] = []
+            requests: List[PairRequest] = list(extra_requests)
+            for new_kf in db.new_keyframes:
+                candidates = self.find_candidates(new_kf, db)
+                if not candidates:
+                    continue
+                new_est = new_kf.estimate(db.graph)
+                for cand in candidates:
+                    requests.append(PairRequest(
+                        target=new_kf, source=cand,
+                        init_pose=self._guess(new_est,
+                                              cand.estimate(db.graph)),
+                        max_iters=self.reg_cfg.reg_maximum_iterations,
+                        fitness_max_range=self.cfg.fitness_score_max_range))
+                jobs.append((new_kf, candidates))
 
-        check_slices = {}
-        if self.cfg.enable_loop_closure_consistency_check:
-            for j, (new_kf, candidates) in enumerate(jobs):
-                new_est = np.asarray(new_kf.estimate(db.graph))
-                for c, cand in enumerate(candidates):
-                    if cand.first_keyframe or cand.static_keyframe:
-                        continue  # direct accept if selected — no checks
-                    checks = self._neighbor_checks(cand, db)
-                    check_slices[(j, c)] = (len(requests), checks)
-                    for nb_kf, odom_rel, kind in checks:
-                        requests.append(PairRequest(
-                            target=new_kf, source=nb_kf,
-                            init_pose=self._guess(
-                                new_est, nb_kf.estimate(db.graph)),
-                            max_iters=self.reg_cfg.reg_maximum_iterations))
-        return requests, jobs, check_slices
+            check_slices = {}
+            if self.cfg.enable_loop_closure_consistency_check:
+                for j, (new_kf, candidates) in enumerate(jobs):
+                    new_est = np.asarray(new_kf.estimate(db.graph))
+                    for c, cand in enumerate(candidates):
+                        if cand.first_keyframe or cand.static_keyframe:
+                            continue  # direct accept if selected — no checks
+                        checks = self._neighbor_checks(cand, db)
+                        check_slices[(j, c)] = (len(requests), checks)
+                        for nb_kf, odom_rel, kind in checks:
+                            requests.append(PairRequest(
+                                target=new_kf, source=nb_kf,
+                                init_pose=self._guess(
+                                    new_est, nb_kf.estimate(db.graph)),
+                                max_iters=self.reg_cfg.reg_maximum_iterations))
+            return requests, jobs, check_slices
 
     def _select(self, jobs, results, k: int):
         """Phase-1 selection: best gated fitness per new keyframe,
@@ -185,25 +185,26 @@ class LoopDetector:
         batch. Acceptance: composed-cycle test (loop ∘ odom ∘ loop^-1 ≈ I)
         on the winner's precomputed neighbor-check rows
         (loop_detector.cpp:243-303)."""
-        loops: List[Loop] = []
-        for j, new_kf, best, best_c, best_res in self._select(
-                jobs, results, n_extra):
-            if self._check_exempt(best):
-                loops.append(self._accept(new_kf, best, best_res))
-                continue
-            off, checks = check_slices[(j, best_c)]
-            if not checks:
-                continue  # no odom neighbors to verify against -> reject
-            ok = False
-            for i, (nb_kf, odom_rel, kind) in enumerate(checks):
-                if ok:
+        with profiling.span("loops.resolve"):
+            loops: List[Loop] = []
+            for j, new_kf, best, best_c, best_res in self._select(
+                    jobs, results, n_extra):
+                if self._check_exempt(best):
+                    loops.append(self._accept(new_kf, best, best_res))
                     continue
-                if self._cycle_closes(best_res.pose, results[off + i].pose,
-                                      odom_rel, kind):
-                    ok = True
-            if ok:
-                loops.append(self._accept(new_kf, best, best_res))
-        return loops
+                off, checks = check_slices[(j, best_c)]
+                if not checks:
+                    continue  # no odom neighbors to verify against -> reject
+                ok = False
+                for i, (nb_kf, odom_rel, kind) in enumerate(checks):
+                    if ok:
+                        continue
+                    if self._cycle_closes(best_res.pose, results[off + i].pose,
+                                          odom_rel, kind):
+                        ok = True
+                if ok:
+                    loops.append(self._accept(new_kf, best, best_res))
+            return loops
 
     def _resolve_two_phase(self, db: GraphDatabase, jobs, results,
                            n_extra: int) -> List[Loop]:
@@ -211,40 +212,41 @@ class LoopDetector:
         candidate-only batch, then run only the winners' odom-neighbour
         consistency registrations as a second, small batch: the
         reference's own ordering (loop_detector.cpp:190-303)."""
-        winners = self._select(jobs, results, n_extra)
-        loops: List[Loop] = []
-        pending = []  # (new_kf, best, best_res, checks, row_offset)
-        check_reqs: List[PairRequest] = []
-        for j, new_kf, best, best_c, best_res in winners:
-            if self._check_exempt(best):
-                loops.append(self._accept(new_kf, best, best_res))
-                continue
-            checks = self._neighbor_checks(best, db)
-            if not checks:
-                continue  # no odom neighbors to verify against -> reject
-            new_est = np.asarray(new_kf.estimate(db.graph))
-            pending.append((new_kf, best, best_res, checks,
-                            len(check_reqs)))
-            for nb_kf, odom_rel, kind in checks:
-                check_reqs.append(PairRequest(
-                    target=new_kf, source=nb_kf,
-                    init_pose=self._guess(new_est,
-                                          nb_kf.estimate(db.graph)),
-                    max_iters=self.reg_cfg.reg_maximum_iterations))
-        if check_reqs:
-            check_results = self.runner.run(check_reqs)
-            for new_kf, best, best_res, checks, off in pending:
-                ok = False
-                for i, (nb_kf, odom_rel, kind) in enumerate(checks):
-                    if ok:
-                        continue
-                    if self._cycle_closes(best_res.pose,
-                                          check_results[off + i].pose,
-                                          odom_rel, kind):
-                        ok = True
-                if ok:
+        with profiling.span("loops.resolve"):
+            winners = self._select(jobs, results, n_extra)
+            loops: List[Loop] = []
+            pending = []  # (new_kf, best, best_res, checks, row_offset)
+            check_reqs: List[PairRequest] = []
+            for j, new_kf, best, best_c, best_res in winners:
+                if self._check_exempt(best):
                     loops.append(self._accept(new_kf, best, best_res))
-        return loops
+                    continue
+                checks = self._neighbor_checks(best, db)
+                if not checks:
+                    continue  # no odom neighbors to verify against -> reject
+                new_est = np.asarray(new_kf.estimate(db.graph))
+                pending.append((new_kf, best, best_res, checks,
+                                len(check_reqs)))
+                for nb_kf, odom_rel, kind in checks:
+                    check_reqs.append(PairRequest(
+                        target=new_kf, source=nb_kf,
+                        init_pose=self._guess(new_est,
+                                              nb_kf.estimate(db.graph)),
+                        max_iters=self.reg_cfg.reg_maximum_iterations))
+            if check_reqs:
+                check_results = self.runner.run(check_reqs)
+                for new_kf, best, best_res, checks, off in pending:
+                    ok = False
+                    for i, (nb_kf, odom_rel, kind) in enumerate(checks):
+                        if ok:
+                            continue
+                        if self._cycle_closes(best_res.pose,
+                                              check_results[off + i].pose,
+                                              odom_rel, kind):
+                            ok = True
+                    if ok:
+                        loops.append(self._accept(new_kf, best, best_res))
+            return loops
 
     # ------------------------------------------------------------------
     def _guess(self, new_est, cand_est) -> np.ndarray:

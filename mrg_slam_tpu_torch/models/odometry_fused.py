@@ -26,7 +26,7 @@ from ..ops import registration as reg
 from ..ops.cloud import PAD_VALUE, PointCloud
 from ..ops.covariance import GICPCloud
 from ..runtime import DeviceLike, resolve_device
-from ..utils import se3
+from ..utils import profiling, se3
 
 
 class OdomCarry(NamedTuple):
@@ -160,8 +160,9 @@ def odometry_step(cfg: ScanMatchingOdometryConfig, carry: OdomCarry,
                   stamp: torch.Tensor) -> Tuple[OdomCarry, OdomStepOut]:
     """One frame-to-keyframe odometry step (GICP family)."""
     source = reg.make_source(PointCloud(points, mask), cfg.registration)
-    return _step(cfg, carry, source, torch.as_tensor(stamp,
-                                                     device=points.device))
+    with profiling.request("frame"):
+        return _step(cfg, carry, source,
+                     torch.as_tensor(stamp, device=points.device))
 
 
 def run_batch(cfg: ScanMatchingOdometryConfig, carry: OdomCarry,
@@ -172,7 +173,8 @@ def run_batch(cfg: ScanMatchingOdometryConfig, carry: OdomCarry,
     outs = []
     for f in range(points.shape[0]):
         src = GICPCloud(sources.points[f], sources.mask[f], sources.covs[f])
-        carry, out = _step(cfg, carry, src, stamps[f])
+        with profiling.request("frame"):
+            carry, out = _step(cfg, carry, src, stamps[f])
         outs.append(out)
     return carry, OdomStepOut(*(torch.stack(v) for v in zip(*outs)))
 
@@ -211,10 +213,13 @@ def run_batch_multi(cfg: ScanMatchingOdometryConfig, carries: OdomCarry,
     outs = []
     for f in range(n_f):
         src = GICPCloud(*(x[:, f] for x in sources))
-        guess = se3.pose_compose(carries.prev_rel, carries.last_delta)
-        result = reg.align_rows(cfg.registration, src, GICPCloud(
-            carries.target_points, carries.target_mask, carries.target_covs),
-            guess, cfg.registration.reg_maximum_iterations)
-        carries, out = _advance(cfg, carries, src, stamps[:, f], result)
+        with profiling.request("frame"):
+            guess = se3.pose_compose(carries.prev_rel, carries.last_delta)
+            result = reg.align_rows(
+                cfg.registration, src, GICPCloud(carries.target_points,
+                                                 carries.target_mask,
+                                                 carries.target_covs),
+                guess, cfg.registration.reg_maximum_iterations)
+            carries, out = _advance(cfg, carries, src, stamps[:, f], result)
         outs.append(out)
     return carries, OdomStepOut(*(torch.stack(v, dim=1) for v in zip(*outs)))

@@ -38,6 +38,7 @@ from ..ops.cloud import PAD_VALUE, PointCloud
 from ..ops.covariance import GICPCloud
 from ..ops.gaussian_voxel import GaussianVoxelMap
 from ..ops.voxel import _INVALID_KEY
+from ..utils import profiling
 from .keyframe import KeyFrame
 
 
@@ -174,7 +175,8 @@ class PairRunner:
         step = self.max_bucket(cap)
         out: List[PairResult] = []
         for s in range(0, len(requests), step):
-            out.extend(self._run_bucket(requests[s: s + step]))
+            with profiling.span("pairs.bucket"):
+                out.extend(self._run_bucket(requests[s: s + step]))
         return out
 
     @staticmethod
@@ -231,7 +233,8 @@ class PairRunner:
                 [PointCloud(c.points, c.mask) for c in tgts], srcs, *host)
         else:
             packed = reg.align_pairs_packed(self.reg_cfg, tgts, srcs, *host)
-        packed = packed.cpu().numpy()  # the bucket's one read
+        with profiling.span("read.pair_bucket"):  # the bucket's one read
+            packed = packed.cpu().numpy()
         self.buckets.append((len(requests), int(packed[:, 8].max())))
         return [PairResult(pose=packed[i, :7],
                            converged=bool(packed[i, 7] > 0.5),

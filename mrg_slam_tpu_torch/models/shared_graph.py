@@ -29,7 +29,7 @@ from ..ops.cloud import PointCloud, pad_invalid
 from ..ops.covariance import GICPCloud
 from ..parallel.messages import PoseWithName, SlamStatus
 from ..runtime import DeviceLike
-from ..utils import se3np
+from ..utils import profiling, se3np
 from .backend import (MrgSlam, TickStats, _flush_processors,
                       _loops_and_solve, _remove_points_near)
 from .graph_database import GraphDatabase
@@ -159,44 +159,47 @@ class SharedGraphSlam:
         """optimization_timer_callback (:802) once for every hosted robot:
         flush -> loops -> optimize. Returns None when there was nothing to
         do."""
-        pre = self._tick_begin(now)
-        if pre is None:
-            return None
-        stats = _loops_and_solve(self.db, self.loop_detector, pre,
-                                 [v.status for v in self.views.values()])
-        self._tick_post(stats)
+        with profiling.request("tick"):
+            pre = self._tick_begin(now)
+            if pre is None:
+                return None
+            stats = _loops_and_solve(self.db, self.loop_detector, pre,
+                                     [v.status for v in self.views.values()])
+            self._tick_post(stats)
         return stats
 
     def _tick_begin(self, now: float):
         """Per-robot init, the flushes and the deferred-edge fitness
         requests -> (stats, deferred edges, requests), or None."""
-        queued = {k.robot_name for k in self.db.keyframe_queue}
-        for view in self.views.values():
-            if not view.init_done and view.name in queued:
-                # set_init_pose (:458), per robot, once its first
-                # keyframe is queued
-                view.trans_odom2map = view.init_pose.copy()
-                view.init_done = True
-                view.status.initialized = True
-        odom2maps = {n: v.trans_odom2map for n, v in self.views.items()}
-        pending_edges = self.db.flush_keyframe_queue(odom2maps,
-                                                     defer_info=True)
-        flushed = bool(pending_edges)
-        flushed |= self.db.flush_static_keyframe_queue()
-        flushed |= self.db.flush_graph_queue()
-        flushed |= self.db.flush_loaded_graph(
-            self.loop_detector.loop_manager)
-        by_robot: Dict[str, List] = {}
-        for k in self.db.keyframes + self.db.new_keyframes:
-            if k.odom_counter >= 0:
-                by_robot.setdefault(k.robot_name, []).append(k)
-        for name, view in self.views.items():
-            flushed |= _flush_processors(
-                self.db, (view.floor_processor, view.gps_processor,
-                          view.imu_processor), by_robot.get(name, []))
+        with profiling.span("tick.flush"):
+            queued = {k.robot_name for k in self.db.keyframe_queue}
+            for view in self.views.values():
+                if not view.init_done and view.name in queued:
+                    # set_init_pose (:458), per robot, once its first
+                    # keyframe is queued
+                    view.trans_odom2map = view.init_pose.copy()
+                    view.init_done = True
+                    view.status.initialized = True
+            odom2maps = {n: v.trans_odom2map for n, v in self.views.items()}
+            pending_edges = self.db.flush_keyframe_queue(odom2maps,
+                                                         defer_info=True)
+            flushed = bool(pending_edges)
+            flushed |= self.db.flush_static_keyframe_queue()
+            flushed |= self.db.flush_graph_queue()
+            flushed |= self.db.flush_loaded_graph(
+                self.loop_detector.loop_manager)
+            by_robot: Dict[str, List] = {}
+            for k in self.db.keyframes + self.db.new_keyframes:
+                if k.odom_counter >= 0:
+                    by_robot.setdefault(k.robot_name, []).append(k)
+            for name, view in self.views.items():
+                flushed |= _flush_processors(
+                    self.db, (view.floor_processor, view.gps_processor,
+                              view.imu_processor), by_robot.get(name, []))
         if not flushed and not self.db.new_keyframes:
             return None
-        self.loop_detector.runner.prefetch_batch(self.db.new_keyframes)
+        with profiling.span("tick.prefetch"):
+            self.loop_detector.runner.prefetch_batch(self.db.new_keyframes)
         deferred = [e for e in pending_edges if e.edge_id is None]
         edge_reqs = tuple(PairRequest(
             target=self.db.uuid_keyframe_map[e.from_uuid],
@@ -207,15 +210,16 @@ class SharedGraphSlam:
     def _tick_post(self, stats: TickStats) -> None:
         """Re-estimate every robot's odom->map from its chain's latest
         keyframe (:864-880) and snapshot the trajectory."""
-        for name, view in self.views.items():
-            prev = self.db.prev_keyframe_of(name)
-            if prev is None or prev.node_id is None:
-                continue
-            est = prev.estimate(self.db.graph)
-            view.trans_odom2map = se3np.pose_compose(
-                est, se3np.pose_inverse(prev.odom))
-        self.db.save_keyframe_poses()
-        self.tick_stats.append(stats)
+        with profiling.span("tick.post"):
+            for name, view in self.views.items():
+                prev = self.db.prev_keyframe_of(name)
+                if prev is None or prev.node_id is None:
+                    continue
+                est = prev.estimate(self.db.graph)
+                view.trans_odom2map = se3np.pose_compose(
+                    est, se3np.pose_inverse(prev.odom))
+            self.db.save_keyframe_poses()
+            self.tick_stats.append(stats)
 
     # ------------------------------------------------------------------
     # outputs (per robot)

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from ..config import RegistrationConfig
-from ..utils import se3
+from ..utils import profiling, se3
 from . import knn
 from .cloud import PointCloud
 from .covariance import (GICPCloud, estimate_covariances,
@@ -268,7 +268,9 @@ def _run_stage(params: RegistrationConfig, src: GICPCloud,
             done = done | ((stall >= 2) & (n_in > 0))
             stop = done | (n_in == 0)
         err = err2
-        if bool(stop):  # the one host sync of the iteration
+        with profiling.span("read.odom_gn"):  # the iteration's one read
+            stop = bool(stop)
+        if stop:
             break
     return pose, it, done, err, n_in, H
 
@@ -427,7 +429,8 @@ def _run_rows(params: RegistrationConfig, src: GICPCloud, tgt,
         n_in = torch.where(a, n2, n_in)
         H = torch.where(a[:, None, None], H2, H)
         active = (it < budget) & ~done & ~dead
-        go = bool(active.any())  # the one host read of the sweep
+        with profiling.span("read.rows_sweep"):  # the sweep's one read
+            go = bool(active.any())
     return pose, it, done, err, n_in, H
 
 
@@ -506,12 +509,14 @@ def _pairs_program(params: RegistrationConfig, tgt, tgt_points, tgt_mask,
                            np.maximum(mi - 1, 0)) if stride > 1
                 else np.zeros_like(mi))
     budget_f = np.maximum(mi - budget_c, 0)
-    # the rows' inputs reach the device in one copy
+    # the rows' inputs reach the device in one copy, from pageable host
+    # memory, which waits for the stream
     host = np.concatenate([np.asarray(init_poses, np.float32).reshape(-1, 7),
                            np.stack([budget_c, budget_f], 1),
                            np.asarray(fitness_max_range,
                                       np.float32)[:, None]], 1)
-    rows = torch.from_numpy(host.astype(np.float32)).to(dev)
+    with profiling.span("read.pair_rows"):
+        rows = torch.from_numpy(host.astype(np.float32)).to(dev)
     pose, fr = rows[:, :7], rows[:, 9]
     iters = torch.zeros(len(mi), dtype=torch.int32, device=dev)
     if stride > 1:

@@ -51,7 +51,6 @@ import sys
 import tempfile
 import threading
 import time
-import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -64,35 +63,6 @@ WORKER_IMPORT = ("from mrg_slam_tpu_torch.pipeline.multiprocess import "
 BOOTSTRAP = (f"import sys; {WORKER_IMPORT}; "
              "_worker_main(sys.stdin.buffer.read())")
 NAMES = ("alpha", "bravo", "charlie", "delta")
-
-
-class _HostReads:
-    """Counts the synchronizing CUDA calls made while entered, as
-    `torch.cuda.set_sync_debug_mode("warn")` reports them (each costs a
-    Python warning, a few us). On the CPU it counts nothing."""
-
-    def __init__(self, torch, device):
-        self.torch, self.on = torch, device.type == "cuda"
-        self.seen: list = []
-
-    def __enter__(self):
-        if self.on:
-            self._catch = warnings.catch_warnings(record=True)
-            self.seen = self._catch.__enter__()
-            warnings.simplefilter("always")
-            self.torch.cuda.set_sync_debug_mode("warn")
-        return self
-
-    def __exit__(self, *exc):
-        if self.on:
-            self.torch.cuda.set_sync_debug_mode("default")
-            self._catch.__exit__(*exc)
-
-    def count(self) -> Optional[int]:
-        if not self.on:
-            return None
-        return sum("called a synchronizing CUDA operation" in str(w.message)
-                   for w in list(self.seen))
 
 
 def _worker_main(arg_blob: bytes) -> None:
@@ -111,6 +81,7 @@ def _worker_main(arg_blob: bytes) -> None:
     from ..parallel.channel import SocketClient, SocketServer
     from ..parallel.messages import dequantize_graph_msg, quantize_graph_msg
     from ..utils.metrics import ate_rmse
+    from ..utils.profiling import SyncAudit
     from ..utils.tum import save_tum
     from .replay import Robot
 
@@ -124,7 +95,7 @@ def _worker_main(arg_blob: bytes) -> None:
     slam = robot.slam
     inbox: List[Tuple[str, object]] = []
     inbox_lock = threading.Lock()
-    reads = _HostReads(torch, device)
+    reads = SyncAudit(device)
     publish: List[dict] = []
 
     server = SocketServer(port=job.port)

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from . import profiling
+
 # below 1e-2 rad the trig forms lose float32 precision to cancellation,
 # while the dropped Taylor terms are O(theta^4) ~ 1e-10
 _EPS = 1e-2
@@ -171,9 +173,11 @@ def so3_left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
 # -- 7-vector poses -----------------------------------------------------------
 
 def pose_identity(device=None, dtype=torch.float32) -> torch.Tensor:
-    # zeros and a scalar fill: no host-to-device copy, so no stream sync
     p = torch.zeros(7, dtype=dtype, device=device)
-    p[3] = 1.0
+    # the scalar reaches the card in a copy from pageable host memory,
+    # which waits for the stream
+    with profiling.span("read.pose_identity"):
+        p[3] = 1.0
     return p
 
 
