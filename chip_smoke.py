@@ -21,10 +21,16 @@ drives two paths at full width on bench.py's production world:
   torch.profiler breakdown of the last tick. It fails without a loop,
   with ATE, keyframes or loops outside their bounds around the JAX
   package's numbers on the same frames, or if the timed pass's keyframe
-  poses differ by a bit from the warm pass's. nn is then held, bit for
-  bit, to its plain version at the pair program's shape (64 rows of
-  the run's keyframe pairs, ragged masks, frozen rows, stride-2 coarse
-  rows) and timed there;
+  poses differ by a bit from the warm pass's, or if any LM iteration of
+  the timed pass did not run the dense LM's three kernels
+  (csrc/lm_dense.cu) once each. nn is then held, bit for bit, to its
+  plain version at the pair program's shape (64 rows of the run's
+  keyframe pairs, ragged masks, frozen rows, stride-2 coarse rows) and
+  timed there; the LM kernels are held to the op path of graph/solve.py
+  at the run's two store shapes (128 nodes / 512 edge rows and 256 /
+  1024, 3/4 live, every robust kernel id; R = 1 and 4) within
+  tests/test_torch_lm_kernel.py's tolerances and timed there, with their
+  launches in the timed pass at each shape;
 - multi-robot co-hosting (bench.py:277-475) at bench's multi-robot width
   (32768 raw -> 4096 filtered points): a fixed 240-scan survey of one lap
   split among R = 2, 3, 4 robots, per block one prefilter over the R*B
@@ -52,8 +58,10 @@ drives two paths at full width on bench.py's production world:
   store of the default capacities with the default OptimizerConfig
   (dense LM at D = 12288, cg marginals: ROADMAP fault 3.1), held to the
   same graph at its run's capacity and to a float64 inverse.
-  This phase launches no hand-written kernel (the solvers are plain
-  torch ops, as the JAX package's are XLA code);
+  The dense solves here (SE3 edges only, one card) run the dense LM's
+  kernels of csrc/lm_dense.cu around the library's Cholesky; the chain
+  backend and the marginals are plain torch ops, as the JAX package's
+  are XLA code;
 - acceptance rows 1, 2 and 7 at their own width (8192 raw -> 1024
   filtered points, the JAX package's baseline_runs._base_cfg()), through
   the port's `pipeline.baseline_runs`: row 1 per frame
@@ -3161,6 +3169,15 @@ class SlamRun(NamedTuple):
     growth: list      # (tick, node capacity, edge capacity) after growth
 
 
+def LM_COUNTERS(lm_dense):
+    """The dense LM's kernel wrappers, in LM_KERNELS' order."""
+    return (lm_dense.linearize_cuda, lm_dense.assemble_cuda,
+            lm_dense.trial_cuda)
+
+
+LM_KERNELS = ("lm_linearize", "lm_assemble", "lm_trial")
+
+
 def full_slam(torch, inp, slam_cfg, profile_tick=None):
     """bench.py:200-223 through the port, on the first SLAM_FRAMES frames:
     per block of BLOCK frames, prefilter and run_batch, process_scan per
@@ -3168,6 +3185,7 @@ def full_slam(torch, inp, slam_cfg, profile_tick=None):
     covariance_compatible) and one optimization_tick. With `profile_tick`
     (a dict), the last tick runs under torch.profiler and the dict gets
     its device time, wall and top ops."""
+    from mrg_slam_tpu_torch.graph import lm_dense
     from mrg_slam_tpu_torch.models import odometry_fused as fused
     from mrg_slam_tpu_torch.models.backend import MrgSlam
     from mrg_slam_tpu_torch.ops import nn_kernel
@@ -3194,6 +3212,7 @@ def full_slam(torch, inp, slam_cfg, profile_tick=None):
                               PointCloud(c.points[i], c.mask[i]),
                               source_covs=outs.covs[i] if covs_ok else None)
         cap0, nn0 = slam.db.graph.cap, nn_kernel.nn_cuda.launches
+        lm0 = [fn.launches for fn in LM_COUNTERS(lm_dense)]
         last = s + BLOCK >= SLAM_FRAMES
         t1 = time.perf_counter()
         if profile_tick is not None and last:
@@ -3212,6 +3231,12 @@ def full_slam(torch, inp, slam_cfg, profile_tick=None):
             loops=st.num_loops, pair_rows=sum(r for r, _ in st.pair_buckets),
             gn_iterations_per_bucket=[g for _, g in st.pair_buckets],
             nn_launches=nn_ticks,
+            lm_fused_iterations=st.lm_fused_iterations,
+            # the LM kernels' launches and the store's node capacity the
+            # tick's solve ran at
+            lm_launches=[fn.launches - n0 for fn, n0
+                         in zip(LM_COUNTERS(lm_dense), lm0)],
+            nodes_cap=slam.db.graph.cap["nodes"],
             # the tick's host reads, counted from where the code reads:
             # one per GN sweep and one per bucket (together the nn
             # launches: each bucket's fitness pass stands for its read),
@@ -3362,17 +3387,18 @@ def slam_phase(torch, inp):
     """Full SLAM twice (warm-up with the last tick profiled, then timed,
     counts from 0 around the timed pass) -> (metrics, launches, timed
     run)."""
+    from mrg_slam_tpu_torch.graph import lm_dense
     from mrg_slam_tpu_torch.ops import nn_kernel, stats_kernel
 
     slam_cfg = make_slam_config(inp.odo)
     prof = {}
     warm = full_slam(torch, inp, slam_cfg, profile_tick=prof)
     counters = (nn_kernel.nn_cuda, stats_kernel.count_cuda,
-                stats_kernel.moments_cuda)
+                stats_kernel.moments_cuda) + LM_COUNTERS(lm_dense)
     for fn in counters:
         fn.launches = 0
     run = full_slam(torch, inp, slam_cfg)
-    launches = dict(zip(("nn", "count", "moments"),
+    launches = dict(zip(("nn", "count", "moments") + LM_KERNELS,
                         (fn.launches for fn in counters)))
     m = slam_metrics(run.slam, inp.traj)
     fps = SLAM_FRAMES / run.wall
@@ -3392,6 +3418,23 @@ def slam_phase(torch, inp):
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"kernel {k} never launched in full SLAM")
+    # every LM iteration of every tick ran the three kernels once
+    lm_iters = sum(t["lm_iterations"] for t in run.ticks)
+    for t in run.ticks:
+        if t["lm_fused_iterations"] != t["lm_iterations"] or \
+                t["lm_launches"] != [t["lm_iterations"]] * 3:
+            raise AssertionError(f"a tick's LM ran off the kernels: {t}")
+    if [launches[k] for k in LM_KERNELS] != [lm_iters] * 3:
+        raise AssertionError(f"LM kernel launches {launches} against "
+                             f"{lm_iters} LM iterations")
+    lm_by_cap = {}
+    for t in run.ticks:
+        cap = lm_by_cap.setdefault(t["nodes_cap"], dict.fromkeys(
+            LM_KERNELS, 0))
+        for k, v in zip(LM_KERNELS, t["lm_launches"]):
+            cap[k] += v
+    log(f"# LM kernels in the timed pass: {lm_iters} LM iterations, each "
+        f"one launch of each kernel; by node capacity {lm_by_cap}")
     check_slam(m)
     a, b = warm.slam.trajectory(), run.slam.trajectory()
     if a.shape != b.shape or not (a.view(np.uint32) == b.view(np.uint32)
@@ -3425,8 +3468,94 @@ def slam_phase(torch, inp):
                                               for t in ticks])),
         last_tick_device_ms=prof["device_ms"],
         last_tick_wall_ms=timed_last, launches=launches,
-        nn_launches_in_ticks=back_nn)
+        nn_launches_in_ticks=back_nn, lm_launches_by_nodes_cap=lm_by_cap)
     return metrics, back_nn, run
+
+
+def load_file(rel):
+    """A module of this repo by its path (tests/ and tools/ are not
+    packages)."""
+    import importlib.util
+
+    name = os.path.splitext(os.path.basename(rel))[0]
+    spec = importlib.util.spec_from_file_location(name,
+                                                  os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def lm_kernel_rows(torch, dev, by_cap):
+    """The dense LM's kernels (csrc/lm_dense.cu) at the main path's two
+    store shapes, 128 nodes / 512 edge rows and 256 / 1024, 3/4 of the
+    nodes live, on seeded rings with chords of every robust kernel id:
+    one iteration held to the op path within tests/test_torch_lm_kernel.py's
+    tolerances (its `check_against_plain`) at R = 4 and R = 1, then each
+    kernel timed at R = 1, its plain twin's stage beside it (linearize's:
+    linearize, assemble_dense, equilibrate and the gradient, assemble's
+    included; the trial's: retraction, chi2 and schedule). The trial is
+    timed with a fixed damping and no stop (is_lm off, rel_tol 0), so
+    every launch does the whole step. Launches: the timed full-SLAM
+    pass's, at that node capacity (`by_cap`)."""
+    from mrg_slam_tpu_torch.graph import lm_dense
+
+    test = load_file("tests/test_torch_lm_kernel.py")
+    tool = load_file("tools/time_lm_dense.py")
+    rows = []
+    for cap_n, cap_e, R in ((128, 512, 4), (128, 512, 1), (256, 1024, 1)):
+        b, snaps, y, dy = test.one_iteration(dev, cap_n, cap_e, R)
+        gaps = test.check_against_plain(b, snaps, y, dy)
+        log(f"# LM kernels at {cap_n} / {cap_e}, R = {R}: against the op "
+            f"path within the test's tolerances; largest gaps {gaps}")
+        if R != 1:
+            continue
+        g = snaps[0]
+        n_live, e_live = int(g.node_mask.sum()), int(g.se3.mask.sum())
+        bounds = tool.bounds_ms(b.index, cap_n, n_live, e_live)
+        info = torch.zeros(1, dtype=torch.int32, device=dev)
+        lam = torch.full((), 1e-3, device=dev)
+        pl = lm_dense.assemble_plain(g, lam)
+        yy = torch.nn.functional.pad((y + dy)[0, :, 0],
+                                     (0, 6 * cap_n - b.Hs.shape[1]))
+        b.flags[0].zero_()
+        b.flags[1].fill_(True)
+        stages = {
+            "lm_linearize": (lambda: lm_dense.linearize_cuda(b),
+                             lambda: lm_dense.assemble_plain(g, lam),
+                             gaps["grad"]),
+            "lm_assemble": (lambda: lm_dense.assemble_cuda(b, init=False),
+                            None, gaps["Hs"]),
+            "lm_trial": (
+                lambda: lm_dense.trial_cuda(b, y, dy, info, False, 0.0),
+                lambda: lm_dense.trial_plain(
+                    g, yy, pl["s"], pl["diag"], pl["b"], pl["chi2"], lam,
+                    torch.full_like(lam, 2.0), False, 0.0),
+                gaps["trial"]),
+        }
+        for name, (fk, fp, err) in stages.items():
+            row = dict(name=f"{name}_{cap_n}", route="cuda",
+                       source="mrg_slam_tpu_torch/csrc/lm_dense.cu",
+                       replaces=None, shape=[cap_n, cap_e, n_live, e_live],
+                       launches=by_cap.get(cap_n, {}).get(name, 0),
+                       max_abs_err=err, ms=cuda_ms(torch, fk),
+                       device_ms=graph_ms(torch, fk),
+                       plain_ms=cuda_ms(torch, fp) if fp else None,
+                       bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                       library_ms=None)
+            # a graph done skips every kernel, one not to relinearize
+            # skips linearize: neither may happen while it is timed
+            if b.flags[0].any() or (name == "lm_linearize"
+                                    and not b.flags[1].all()):
+                raise AssertionError(f"{name} timing: a launch stopped "
+                                     "short (done set or relin cleared)")
+            log(f"# {row['name']}: kernel {row['ms']:.4f} ms around one "
+                f"call ({row['device_ms']:.4f} ms a launch in a CUDA "
+                f"graph), plain {row['plain_ms']} ms, bound "
+                f"{row['bound_ms']:.2e} ms ({row['bound_by']}); "
+                f"{row['launches']} launches in the timed full-SLAM pass "
+                f"at {cap_n} nodes")
+            rows.append(row)
+    return rows
 
 
 def solver_graph(n, backend, dev):
@@ -4400,6 +4529,8 @@ def main():
     slam_m, back_nn, slam_run = slam_phase(torch, inp)
     rows.append(pair_nn_phase(torch, slam_run.slam, back_nn,
                               slam_run.ticks))
+    rows.extend(lm_kernel_rows(torch, dev,
+                               slam_m["lm_launches_by_nodes_cap"]))
 
     t0 = time.perf_counter()
     mr = mr_inputs(torch, dev)

@@ -31,7 +31,7 @@ import torch
 from ..config import OptimizerConfig
 from ..runtime import DeviceLike, resolve_device
 from ..utils import profiling
-from . import chain_solver, solve
+from . import chain_solver, lm_dense, solve
 from .chordal import chordal_init
 from .types import (KERNEL_IDS, PLANE_PLANE_IDENTITY, PLANE_PLANE_PARALLEL,
                     PLANE_PLANE_PERPENDICULAR, PLANE_PRIOR_DISTANCE,
@@ -152,6 +152,8 @@ class GraphSLAM:
         self.chi2_initial = 0.0
         self.chi2_final = 0.0
         self.last_iterations = 0
+        # of them, the LM iterations that ran graph/lm_dense.py's kernels
+        self.last_fused_iterations = 0
         # wall ms of the last optimize: the snapshot and the LM (which ends
         # on a host read), then the marginals and the packed read
         self.last_lm_ms = 0.0
@@ -382,6 +384,13 @@ class GraphSLAM:
     def snapshot(self) -> PoseGraphData:
         """The standing staging buffers as a PoseGraphData on the device,
         in two host-to-device copies (one per dtype)."""
+        return self._snapshot()[0]
+
+    def _snapshot(self):
+        """`snapshot`, and on a CUDA store the SE3 table's LMIndex
+        (graph/lm_dense.py), built from the staging buffers and uploaded
+        in the same copy -> (PoseGraphData, LMIndex or None). Whether a
+        solve uses the index is `solve.optimize`'s choice."""
         node_mask = np.zeros(self._poses.shape[0], bool)
         node_mask[: self._n_nodes] = True
         plane_mask = np.zeros(self._planes.shape[0], bool)
@@ -393,11 +402,19 @@ class GraphSLAM:
                  for _, _, t in tables]
         floats = _upload(self.device, [self._poses, self._planes] + [
             t.arrays[k] for (_, _, t), ks in zip(tables, fkeys) for k in ks])
+        extra = []
+        if self.device.type == "cuda":
+            a = self._se3.arrays
+            extra = list(lm_dense.build_index(
+                a["from_idx"], a["to_idx"], self._se3.mask(),
+                self._poses.shape[0]))
         ints = _upload(self.device, [
             np.stack([node_mask, self._node_fixed]),
             np.stack([plane_mask, self._plane_fixed])] + [
             x for (_, _, t), ks in zip(tables, ikeys)
-            for x in [t.arrays[k] for k in ks] + [t.mask()]])
+            for x in [t.arrays[k] for k in ks] + [t.mask()]] + extra)
+        index = (lm_dense.LMIndex(*ints[-2:], live=self._n_nodes)
+                 if extra else None)
         poses, planes = floats[:2]
         nflags, pflags = ints[:2]
         fo, io = 2, 2
@@ -413,7 +430,7 @@ class GraphSLAM:
             poses=poses, node_mask=nflags[0].bool(),
             node_fixed=nflags[1].bool(), planes=planes,
             plane_mask=pflags[0].bool(), plane_fixed=pflags[1].bool(),
-            **out)
+            **out), index
 
     def _live(self, g: PoseGraphData) -> PoseGraphData:
         """`g` cut to its live nodes, planes and edges, which the staging
@@ -455,7 +472,7 @@ class GraphSLAM:
             cfg = dataclasses.replace(
                 cfg, g2o_solver_num_iterations=num_iterations)
         t0 = time.perf_counter()
-        g = self.snapshot()
+        g, index = self._snapshot()
         n = self._n_nodes
         if cfg.chordal_init and n:
             g = g._replace(poses=chordal_init(g))
@@ -463,7 +480,7 @@ class GraphSLAM:
         if solve.resolve_backend(cfg.solver_backend, g.n_nodes, g.n_planes,
                                  cfg.auto_dense_max_dofs) == "chain":
             aux = self._chain_aux()
-        res = solve.optimize(g, cfg, aux=aux)
+        res = solve.optimize(g, cfg, aux=aux, index=index)
         t1 = time.perf_counter()
         with profiling.span("graph.marginals"):
             mode = solve.resolve_marginals_mode(cfg.per_tick_marginals,
@@ -496,6 +513,7 @@ class GraphSLAM:
         self.chi2_initial = float(flat[o])
         self.chi2_final = float(flat[o + 1])
         self.last_iterations = res.iterations
+        self.last_fused_iterations = res.iterations if res.fused else 0
         if len(parts) == 4:
             self.last_marginals = flat[o + 2:].reshape(-1, 6, 6)[:n]
         self.last_lm_ms = (t1 - t0) * 1e3
@@ -542,11 +560,11 @@ def optimize_many(graphs) -> None:
     for g in graphs:
         g.reserve(**caps)
     t0 = time.perf_counter()
-    snaps = [g.snapshot() for g in graphs]
+    snaps, indexes = map(list, zip(*(g._snapshot() for g in graphs)))
     if cfg.chordal_init:
         snaps = [s._replace(poses=chordal_init(s)) if g.num_nodes else s
                  for g, s in zip(graphs, snaps)]
-    res = solve.optimize_many(snaps, cfg)
+    res = solve.optimize_many(snaps, cfg, indexes)
     t1 = time.perf_counter()
     R = len(graphs)
     with profiling.span("graph.marginals"):
@@ -582,6 +600,7 @@ def optimize_many(graphs) -> None:
         g.chi2_initial = float(row[o])
         g.chi2_final = float(row[o + 1])
         g.last_iterations = int(row[o + 2])
+        g.last_fused_iterations = g.last_iterations if res.fused else 0
         if len(parts) == 4:
             g.last_marginals = row[o + 3:].reshape(-1, 6, 6)[:n]
         g.last_lm_ms = (t1 - t0) * 1e3

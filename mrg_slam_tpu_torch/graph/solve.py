@@ -30,6 +30,11 @@ PyTorch runs deterministically on the card under
 `torch.use_deterministic_algorithms(True)` (runtime.py), so the same graph
 gives the same poses bit for bit.
 
+The dense LM of a graph on the card whose only edge family is SE3, on
+one device, runs in the hand-written kernels of graph/lm_dense.py
+(csrc/lm_dense.cu) instead, which sum in a fixed order without atomics;
+every other solve, and every solve on the CPU, runs the ops here.
+
 Every edge family of graph/types.py is solved, over the two node pools:
 SE(3) poses (6 dof) and planes (3 dof). A family whose table has zero
 capacity is skipped at every stage, as the JAX package's `_has` skips it,
@@ -56,6 +61,7 @@ import torch
 from ..config import OptimizerConfig
 from ..utils import profiling, se3
 from . import edges as E
+from . import lm_dense
 from .robust import robust_rho_and_weight
 from .types import PoseGraphData, plane_retract
 
@@ -96,6 +102,7 @@ class OptimizeResult(NamedTuple):
     iterations: int
     lambda_final: torch.Tensor
     cg_iterations: torch.Tensor  # () CG iterations over the LM (cg only)
+    fused: bool = False  # the LM ran graph/lm_dense.py's kernels
 
 
 def _sum_over(group, *xs):
@@ -501,6 +508,19 @@ def _cholesky(A: torch.Tensor):
                        torch.full_like(L, float("nan")))
 
 
+def equilibrate(H, b, free, lam):
+    """The damped system (H + (lam diag(H) + 1e-6) on the free dofs),
+    Jacobi-equilibrated -> (Hs, bs (..., D, 1), the scales s, diag(H)),
+    for one system or a batch (leading axes, lam (R,))."""
+    lam = lam[..., None]
+    diag = torch.diagonal(H, dim1=-2, dim2=-1)
+    Hl = H + torch.diag_embed((lam * diag + 1e-6) * free)
+    s = torch.rsqrt(torch.clamp(torch.diagonal(Hl, dim1=-2, dim2=-1),
+                                min=1e-12))
+    Hs = Hl * s[..., :, None] * s[..., None, :]
+    return Hs, (b * s)[..., None], s, diag
+
+
 def dense_delta(H, b, free, lam):
     """Damped Newton step -> (x, predicted chi2 reduction), for one system
     (H (D, D), b and free (D,), lam ()) or a batch of them (leading
@@ -511,13 +531,8 @@ def dense_delta(H, b, free, lam):
     one step of iterative refinement recover the step (graph/solve.py of
     the JAX package, which factors the upper triangle; the lower factor
     here is the same matrix, rounded differently)."""
+    Hs, bs, s, diag = equilibrate(H, b, free, lam)
     lam = lam[..., None]
-    diag = torch.diagonal(H, dim1=-2, dim2=-1)
-    Hl = H + torch.diag_embed((lam * diag + 1e-6) * free)
-    s = torch.rsqrt(torch.clamp(torch.diagonal(Hl, dim1=-2, dim2=-1),
-                                min=1e-12))
-    Hs = Hl * s[..., :, None] * s[..., None, :]
-    bs = (b * s)[..., None]
     L = _cholesky(Hs)
     y = torch.cholesky_solve(bs, L)
     y = y + torch.cholesky_solve(bs - Hs @ y, L)
@@ -621,7 +636,8 @@ def _take(accept, g_new: PoseGraphData, lin_new: LinearizedGraph,
 
 
 def optimize(g: PoseGraphData, cfg: OptimizerConfig,
-             aux=None, group=None) -> OptimizeResult:
+             aux=None, group=None,
+             index: Optional[lm_dense.LMIndex] = None) -> OptimizeResult:
     """Levenberg-Marquardt with chi2-based accept/reject and Nielsen's
     lambda schedule, at most `g2o_solver_num_iterations` iterations;
     `gn_*` solver types run with a fixed tiny damping.
@@ -636,10 +652,23 @@ def optimize(g: PoseGraphData, cfg: OptimizerConfig,
     edges is an all-reduce; for chain, `g` is the whole graph on every
     rank and the factorization's segment panels are split over the ranks
     (chain_solver.chain_delta). Node state and every LM decision are
-    replicated, so each rank returns the same poses."""
+    replicated, so each rank returns the same poses.
+
+    A graph that `lm_dense.takes_kernels` (dense, one device, on the
+    card, SE3 edges only) runs the same LM in graph/lm_dense.py's
+    kernels, with `index` its LMIndex when the caller built one."""
     from . import chain_solver
     backend = resolve_backend(cfg.solver_backend, g.n_nodes, g.n_planes,
                               cfg.auto_dense_max_dofs)
+    if lm_dense.takes_kernels(g, backend, group):
+        with profiling.span("lm"):
+            res = lm_dense.optimize([g], [index], cfg)
+        return OptimizeResult(
+            poses=res.poses[0], planes=g.planes,
+            chi2_initial=res.chi2_initial[0], chi2_final=res.chi2_final[0],
+            iterations=res.passes, lambda_final=res.lambda_final[0],
+            cg_iterations=torch.zeros((), dtype=torch.int64,
+                                      device=g.poses.device), fused=True)
     is_lm = cfg.g2o_solver_type.startswith("lm")
     n, p = g.n_nodes, g.n_planes
     dev = g.poses.device
@@ -702,8 +731,9 @@ def optimize(g: PoseGraphData, cfg: OptimizerConfig,
                           cg_iterations=cg_iters)
 
 
-def optimize_many(gs: Sequence[PoseGraphData],
-                  cfg: OptimizerConfig) -> OptimizeResult:
+def optimize_many(gs: Sequence[PoseGraphData], cfg: OptimizerConfig,
+                  indexes: Optional[Sequence[Optional[lm_dense.LMIndex]]]
+                  = None) -> OptimizeResult:
     """The dense LM of `optimize` over R graphs of one shape side by side
     (the counterpart of the JAX package's `_optimize_many_split`, a
     vmapped `optimize`) -> an OptimizeResult with a leading graph axis:
@@ -715,13 +745,25 @@ def optimize_many(gs: Sequence[PoseGraphData],
     once; `done` is sticky and freezes its graph (no step, lam and nu
     kept), so a graph that stops early holds its result while the others
     iterate, and each graph ends where its own `optimize` ends. The batch
-    reads one flag an iteration, whether every graph is done."""
+    reads one flag an iteration, whether every graph is done.
+
+    When every graph `lm_dense.takes_kernels`, the batch runs
+    graph/lm_dense.py's kernels over a leading graph axis, with
+    `indexes` their LMIndexes where the caller built them."""
     if resolve_backend(cfg.solver_backend, gs[0].n_nodes, gs[0].n_planes,
                        cfg.auto_dense_max_dofs) != "dense":
         raise ValueError("optimize_many runs the dense backend; solve "
                          "graphs of the other backends one by one")
     gs = list(gs)
     R, n, p = len(gs), gs[0].n_nodes, gs[0].n_planes
+    if all(lm_dense.takes_kernels(g, "dense") for g in gs):
+        with profiling.span("lm"):
+            res = lm_dense.optimize(gs, indexes or [None] * R, cfg)
+        return OptimizeResult(
+            poses=res.poses, planes=torch.stack([g.planes for g in gs]),
+            chi2_initial=res.chi2_initial, chi2_final=res.chi2_final,
+            iterations=res.iterations, lambda_final=res.lambda_final,
+            cg_iterations=torch.zeros_like(res.iterations), fused=True)
     dev = gs[0].poses.device
     is_lm = cfg.g2o_solver_type.startswith("lm")
     with profiling.span("lm"):

@@ -86,6 +86,8 @@ class TickStats:
     chi2_before: float = 0.0
     chi2_after: float = 0.0
     iterations: int = 0
+    # of them, the LM iterations that ran graph/lm_dense.py's kernels
+    lm_fused_iterations: int = 0
     lm_ms: float = 0.0         # snapshot upload and LM (graph/builder.py)
     marginals_ms: float = 0.0  # marginals and the solve's packed read
     # (rows, GN iterations of the slowest row) of each pair-program bucket
@@ -141,6 +143,7 @@ def _solve_stats(graph, stats: TickStats) -> None:
     stats.chi2_before = graph.chi2_initial
     stats.chi2_after = graph.chi2_final
     stats.iterations = graph.last_iterations
+    stats.lm_fused_iterations = graph.last_fused_iterations
     stats.lm_ms = graph.last_lm_ms
     stats.marginals_ms = graph.last_marginals_ms
 

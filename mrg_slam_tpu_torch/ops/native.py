@@ -37,6 +37,9 @@ SIGNATURES = {
     "mrg_radius_count_scratch": (_I, _I, _I, _I, _P),
     "mrg_radius_moments": (_P, _P, _I, _I, _I, _F, _P, _P, _P, _P),
     "mrg_empty": (_P,),
+    "mrg_lm_linearize": (_P,) * 9 + (_I,) * 3 + (_P,) * 3,
+    "mrg_lm_assemble": (_P,) * 7 + (_I,) * 7 + (_P,) * 9,
+    "mrg_lm_trial": (_P,) * 14 + (_I,) * 5 + (_F,) + (_P,) * 11,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
